@@ -1,0 +1,56 @@
+"""Weight bridge from the JAX package's functional state to a port module.
+
+``paddle_tpu``'s ``layer_state(layer)[0]`` is a flat ``{dotted name:
+array}`` dict (``encoder.layers.0.self_attn.q_proj.weight``,
+``encoder.norm.bias``...).  The port's modules carry the same dotted
+names, so the bridge maps name to name.  The one layout that differs is
+``Linear``'s weight: Paddle stores it ``[in, out]``, torch ``[out, in]``,
+so those are transposed; Embedding and LayerNorm tensors copy as they
+are.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from .enforce import InvalidArgumentError
+
+__all__ = ["load_jax_state"]
+
+
+def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
+    """Copy ``params`` (numpy arrays keyed by the JAX dotted names) into
+    ``module``'s parameters and persistent buffers, in place.  Strict:
+    every name on either side must be matched and every shape must
+    agree, or :class:`InvalidArgumentError` is raised before anything
+    is written."""
+    own = module.state_dict()            # detached views of the storage
+    missing = sorted(set(own) - set(params))
+    extra = sorted(set(params) - set(own))
+    if missing or extra:
+        raise InvalidArgumentError(
+            f"load_jax_state: names missing from params {missing}, "
+            f"unknown names in params {extra}")
+    linear = {f"{n}.weight" for n, m in module.named_modules()
+              if isinstance(m, nn.Linear)}
+    staged = {}
+    for name, dst in own.items():
+        src = np.asarray(params[name])
+        if src.dtype.name == "bfloat16" \
+                or np.issubdtype(src.dtype, np.floating):
+            # torch.from_numpy takes no bf16; copy_ casts to dst's dtype
+            src = src.astype(np.float32)
+        if name in linear:
+            src = src.T                  # Paddle [in, out] -> torch [out, in]
+        if tuple(src.shape) != tuple(dst.shape):
+            raise InvalidArgumentError(
+                f"load_jax_state: {name} has shape {tuple(src.shape)} "
+                f"(after layout), the module wants {tuple(dst.shape)}")
+        staged[name] = src
+    with torch.no_grad():
+        for name, dst in own.items():
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(staged[name])))
+    return module

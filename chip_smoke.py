@@ -9,7 +9,7 @@ Phases, each printing its own line; any failure raises and the script
 exits non-zero without printing a result:
 
   1. env      the card (torch and nvidia-smi), torch and CUDA versions;
-  2. build    nvcc builds every kernel source of the serving path;
+  2. build    nvcc builds every kernel source of the port;
   3. kernels  each kernel against its plain PyTorch version on the card,
               then its time beside the plain version, a library call and
               the card's bound;
@@ -27,7 +27,25 @@ exits non-zero without printing a result:
               torch.profiler: device busy time and kernel time by name;
   6. e2e      kernel against plain end to end: f32 generate() with
               FLAGS_use_flash_decode on and off gives equal tokens and
-              last logits within 1e-4.
+              last logits within 1e-4;
+  7. fa_kernels  the flash-attention kernels (forward B1, backward B2:
+              dQ and dK/dV) against their plain versions in f32 and bf16
+              over head_dims 64/128/256, lengths 128, 200, 256 and
+              128 x 384, causal, and the three bias shapes; then at
+              BERT-base (B=64, N=12, S=128, H=64) on the strided views
+              the model passes, with and without the padding bias:
+              checked in f32 and bf16, and timed in bf16 beside the
+              bound, the plain versions and SDPA;
+  8. train    BERT-base pretraining (random weights from --seed, f32
+              masters, bf16 compute, AdamW, dropout 0.1) at batch 64 x
+              seq 128 with a ragged attention mask: 3 + 20 steps, seq/s,
+              loss per step (finite, descending), launches of each
+              flash-attention kernel = 12 layers x steps; one seed gives
+              one first loss, another seed another; then train_parity
+              (f32, dropout off, batch 8: 5 steps with the kernels on
+              and off) and train_profile (one step under torch.profiler);
+  9. batch_probe  one short prompt decoded alone and in an 8-row batch,
+              module by module, to find where its row first diverges.
 
 The last lines are the card as nvidia-smi reports it, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
@@ -147,18 +165,20 @@ def _windows(torch, kind, B, S, g):
     return lo, hi
 
 
-def _graph_ms(torch, launch, calls):
+def _graph_ms(torch, launch, calls, stream=None):
     """Device time of one ``launch(i)`` call: ``calls`` calls captured in
     a CUDA graph (no host launch gaps), replayed, timed with events;
-    median over rounds."""
-    side = torch.cuda.Stream()
+    median over rounds.  With ``stream``, the warm-up and the capture run
+    on it: autograd runs a backward on its forward's stream, so a
+    backward whose forward ran there is captured alone."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(calls):
             launch(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(calls):
             launch(i)
     graph.replay()
@@ -564,6 +584,521 @@ def phase_e2e(torch, seed):
         tokens_equal=True, last_logits_max_abs_err=err, atol=1e-4)
 
 
+# -- phase 7: flash attention kernels (B1, B2) -------------------------------
+
+# (B, N, Sq, Sk, H, causal, bias): H 64/128/256; S 128, 256 and 200 (off
+# the 64-row tile); causal with Sq = Sk and with Sq = 128 < Sk = 384; the
+# three bias shapes "b11s" (B, 1, 1, Sk), "11ss" (1, 1, Sq, Sk) and
+# "bnss" (B, N, Sq, Sk)
+FA_CHECKS = (
+    (2, 4, 128, 128, 64, False, None),
+    (2, 4, 256, 256, 128, False, "b11s"),
+    (2, 4, 200, 200, 256, False, "11ss"),
+    (2, 4, 128, 128, 64, True, None),
+    (2, 4, 200, 200, 128, True, "bnss"),
+    (2, 4, 128, 384, 64, True, "b11s"),
+    (2, 4, 256, 256, 256, True, "bnss"),
+    (2, 4, 128, 384, 128, False, "11ss"),
+)
+# kernel against its plain version on the same inputs, per output, as a
+# share of max(1, the output's largest |value|):
+#  * f32: both sum in f32 in other orders over <= 384 terms: ~1e-6;
+#  * bf16: the plain version on the same bf16 tensors rounds p, ds and
+#    the outputs at the kernels' points; they differ where summation
+#    order moves a value across a bf16 rounding boundary, one bf16 step
+#    (2^-8 of the value) per output at most: 2^-6 leaves a margin of 4.
+# bf16 forward against the f32 plain version on the same inputs: 1e-2,
+# half a bf16 step at |o| < 4 (ATOL above).
+FA_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# the BERT-base training shape
+FA_TIME = dict(B=64, N=12, S=128, H=64)
+FA_ROTATE = 4           # input sets rotated through when timing (> L2)
+
+
+def _fa_inputs(torch, g, B, N, Sq, Sk, H, bias, dtype, layout="bnsh"):
+    """q, k, v, dO and the bias.  ``layout`` "bnsh" makes contiguous
+    (B, N, S, H) tensors; "bsnh" makes them as the model's attention
+    does: ``x.view(B, S, N, H).transpose(1, 2)`` of a (B, S, N*H)
+    projection, strided views the wrappers pass to the kernels uncopied.
+    ``bias`` "pad" is BERT's padding mask: (B, 1, 1, Sk), 0 over each
+    row's first 64..Sk keys and -1e4 after."""
+    def mk(S):
+        if layout == "bnsh":
+            return torch.randn(B, N, S, H, generator=g, device="cuda") \
+                .to(dtype)
+        return torch.randn(B, S, N * H, generator=g, device="cuda") \
+            .to(dtype).view(B, S, N, H).transpose(1, 2)
+    q, k, v, do = mk(Sq), mk(Sk), mk(Sk), mk(Sq)
+    if bias == "pad":
+        lens = torch.randint(Sk // 2, Sk + 1, (B,), generator=g,
+                             device="cuda")
+        return q, k, v, do, torch.where(
+            torch.arange(Sk, device="cuda")[None] < lens[:, None], 0.0,
+            -1e4)[:, None, None, :]
+    shape = {None: None, "b11s": (B, 1, 1, Sk), "11ss": (1, 1, Sq, Sk),
+             "bnss": (B, N, Sq, Sk)}[bias]
+    b = None
+    if shape is not None:
+        b = torch.where(torch.rand(*shape, generator=g, device="cuda") < 0.2,
+                        -1e4, 0.0)
+    return q, k, v, do, b
+
+
+def _share_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1.0)).item()
+
+
+def _fa_bound(kind, B, N, Sq, Sk, H, elt, bias_bytes):
+    """Least time of one call (ms) at these inputs: q, k, v (and dO, lse,
+    dd) read once, the outputs written once, over HBM bandwidth; against
+    the products the kernel does (QK^T and PV; the backward recomputes
+    QK^T and does dO V^T, then dS K, or dS^T Q and P^T dO) over the
+    inputs' peak rate.  Non-causal pairs: the training path's case."""
+    bnh = B * N * H
+    rows = B * N * Sq * 4                     # one f32 per query row
+    if kind == "fwd":
+        nbytes = (2 * Sq + 2 * Sk) * bnh * elt + rows
+        ops = 4 * B * N * Sq * Sk * H
+    elif kind == "dq":
+        nbytes = (3 * Sq + 2 * Sk) * bnh * elt + 2 * rows
+        ops = 6 * B * N * Sq * Sk * H
+    else:
+        nbytes = (2 * Sq + 4 * Sk) * bnh * elt + 2 * rows
+        ops = 8 * B * N * Sq * Sk * H
+    nbytes += bias_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16" if elt == 2 else "float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, ops
+
+
+def _fa_compare(torch, fa, inputs, causal, where, worst):
+    """Each kernel (forward, dQ, dK/dV) against its plain version on
+    ``inputs`` = (q, k, v, dO, bias); the backward kernels take the plain
+    forward's lse so that only their own error shows.  Raises on a
+    disagreement beyond FA_RTOL; records the max abs error in ``worst``."""
+    q, k, v, do, b = inputs
+    dt = q.dtype
+    name = str(dt).split(".")[-1]
+    o, lse = fa.flash_fwd(q, k, v, b, causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, b, causal)
+    dd = fa.flash_dd(o_ref, do)
+    dq = fa.flash_bwd_dq(q, k, v, b, lse_ref, do, dd, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, b, lse_ref, do, dd, causal)
+    want = fa.flash_bwd_reference(q, k, v, b, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    where = f"{where} {name}"
+    outs = {"fwd": [(o, o_ref)], "dq": [(dq, want[0])],
+            "dkv": [(dk, want[1]), (dv, want[2])]}
+    for kern, pairs in outs.items():
+        for got, ref in pairs:
+            check(got.shape == ref.shape and got.dtype == dt,
+                  f"{where}: {kern} returned {got.shape} {got.dtype}")
+            check(bool(torch.isfinite(got).all()),
+                  f"{where}: {kern} non-finite")
+            err = _share_err(got, ref)
+            check(err <= FA_RTOL[name], f"{where}: {kern} error "
+                  f"{err} of max(1, max|ref|) > {FA_RTOL[name]}")
+            worst[kern] = max(worst[kern], (got.float() - ref.float())
+                              .abs().max().item())
+    lse_err = (lse - lse_ref).abs().max().item()
+    check(lse_err <= 1e-4, f"{where}: lse differs by {lse_err}")
+    if dt == torch.bfloat16:
+        o32, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), b,
+                                        causal)
+        err = (o.float() - o32).abs().max().item()
+        check(err <= ATOL["bfloat16"],
+              f"{where}: bf16 forward vs f32 plain {err}")
+
+
+def phase_fa_kernels(torch, seed):
+    """B1, B2-dQ and B2-dK/dV against their plain versions over
+    FA_CHECKS in f32 and bf16, then at the BERT-base training shape in
+    the model's layout: checked in f32 and bf16, and timed in bf16."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for B, N, Sq, Sk, H, causal, bias in FA_CHECKS:
+        where = f"B={B} N={N} Sq={Sq} Sk={Sk} H={H} causal={causal} " \
+            f"bias={bias}"
+        for dt in (torch.float32, torch.bfloat16):
+            _fa_compare(torch, fa, _fa_inputs(torch, g, B, N, Sq, Sk, H,
+                                              bias, dt), causal, where, worst)
+        log("fa_kernels", check=where, dtypes="float32,bfloat16", ok=True)
+
+    # the BERT-base training shape, as the model gives it to the kernels:
+    # q, k, v and dO are transposed views of (B, S, N*H) projections,
+    # read by the kernels through their strides, non-causal, with and
+    # without the padding bias.  Checked in f32 and bf16, then timed in
+    # bf16, rotating over FA_ROTATE input sets (> 50 MB of L2 between
+    # reuses)
+    B, N, S, H = (FA_TIME[x] for x in "BNSH")
+    timings = {}
+    for padded in (False, True):
+        bias = "pad" if padded else None
+        where = f"B={B} N={N} S={S} H={H} bias={bias} layout=bsnh"
+        for dt in (torch.float32, torch.bfloat16):
+            inputs = _fa_inputs(torch, g, B, N, S, S, H, bias, dt, "bsnh")
+            check(not inputs[0].is_contiguous() and all(
+                fa._strided(t, dt, "") is t for t in inputs[:4]),
+                f"{where}: the inputs are not the model's strided views "
+                "or the wrapper would copy them")
+            _fa_compare(torch, fa, inputs, False, where, worst)
+            del inputs
+        log("fa_kernels", check=where, dtypes="float32,bfloat16",
+            uncopied_views=True, ok=True)
+        sets = []
+        for _ in range(FA_ROTATE):
+            q, k, v, do, b = _fa_inputs(torch, g, B, N, S, S, H, bias,
+                                        torch.bfloat16, "bsnh")
+            o, lse = fa.flash_fwd_reference(q, k, v, b)
+            sets.append((q, k, v, do, b, lse, fa.flash_dd(o, do)))
+        n = len(sets)
+        kern = {
+            "fwd": lambda i: fa.flash_fwd(*sets[i % n][:3], sets[i % n][4]),
+            "dq": lambda i: fa.flash_bwd_dq(
+                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+                sets[i % n][3], sets[i % n][6]),
+            "dkv": lambda i: fa.flash_bwd_dkv(
+                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+                sets[i % n][3], sets[i % n][6]),
+        }
+        plain = {
+            "fwd": lambda i: fa.flash_fwd_reference(*sets[i % n][:3],
+                                                    sets[i % n][4]),
+            "dq": lambda i: fa._bwd_plain(
+                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+                sets[i % n][3], sets[i % n][6], False, None, "q"),
+            "dkv": lambda i: fa._bwd_plain(
+                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+                sets[i % n][3], sets[i % n][6], False, None, "kv"),
+        }
+        t = {}
+        for key in ("fwd", "dq", "dkv"):
+            t[key] = _graph_ms(torch, kern[key], 2 * n)
+            t[key + "_plain"] = _graph_ms(torch, plain[key], 2 * n)
+            bias_bytes = 0 if sets[0][4] is None else sets[0][4].numel() * 4
+            bound, by, nbytes, ops = _fa_bound(key, B, N, S, S, H, 2,
+                                               bias_bytes)
+            t.update({key + "_bound": bound, key + "_bound_by": by,
+                      key + "_bytes": nbytes, key + "_ops": ops})
+        # the library yardstick (never called by the port): SDPA with the
+        # same additive mask, forward; and the backward of that one call,
+        # which computes dQ, dK and dV together
+        mask = [None if x[4] is None else x[4].to(torch.bfloat16)
+                for x in sets]
+        t["sdpa_fwd"] = _graph_ms(
+            torch, lambda i: F.scaled_dot_product_attention(
+                *sets[i % n][:3], attn_mask=mask[i % n]), 2 * n)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            leaves = [[x.detach().requires_grad_() for x in st[:3]]
+                      for st in sets]
+            outs = [F.scaled_dot_product_attention(*lv, attn_mask=m)
+                    for lv, m in zip(leaves, mask)]
+        t["sdpa_bwd"] = _graph_ms(torch, lambda i: torch.autograd.grad(
+            outs[i % n], leaves[i % n], sets[i % n][3], retain_graph=True),
+            2 * n, stream=stream)
+        t["sdpa_fwd_bwd"] = _graph_ms(torch, lambda i: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves[i % n],
+                                           attn_mask=mask[i % n]),
+            leaves[i % n], sets[i % n][3]), 2 * n)
+        log("fa_kernels", timing=f"B={B} N={N} S={S} H={H} bf16, "
+            f"{'padding bias (B,1,1,S)' if padded else 'no bias'}, "
+            f"model layout, {n} input sets rotated", ms=t)
+        timings[padded] = t
+        del sets, leaves, outs
+    log("fa_kernels", max_abs_err=worst, rtol=FA_RTOL)
+    return worst, timings[True]
+
+
+# -- phase 8: BERT-base training ---------------------------------------------
+
+TRAIN = dict(batch=64, seq=128, n_pred=19, warmup=3, steps=20, lr=1e-4,
+             weight_decay=0.01)
+PARITY = dict(batch=8, seq=128, steps=5)
+# kernels-on against kernels-off f32 training from the same weights:
+#  * loss per step 1e-4: forward attention agrees to ~1e-6 per output
+#    (FA_RTOL), which 12 layers and 5 Adam steps move a loss of ~10 by
+#    ~1e-5;
+#  * every parameter but the key biases 1e-4: the H100 run measured at
+#    most 2.6e-5 (linear1.weight of the last layer), and 1e-4 is 4x that
+#    and a fifth of what two runs whose gradients disagree could reach
+#    (Adam moves an element by up to ~lr = 1e-4 per step);
+#  * the key biases 2 * lr * steps: their exact gradient is 0 (softmax
+#    is invariant to a shift of all logits of a row), so what both runs
+#    compute is rounding noise, and Adam's normalised step turns noise
+#    into moves of up to ~lr per step either way.
+PARITY_LOSS_ATOL = 1e-4
+PARITY_PARAM_ATOL = 1e-4
+PARITY_KEY_BIAS_ATOL = 2 * TRAIN["lr"] * PARITY["steps"]
+
+
+def _bert(torch, seed, dropout=True, dtype=None):
+    import dataclasses
+    from paddle_tpu_torch.text.models import BertConfig, BertForPretraining
+    cfg = BertConfig.base()
+    if not dropout:
+        cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+    model = BertForPretraining(cfg, device="cuda", dtype=dtype)
+    return model.init_weights(torch.Generator(device="cuda")
+                              .manual_seed(seed))
+
+
+def _bert_batch(torch, vocab, batch, seq, n_pred, seed):
+    """bench.py's BERT batch (token ids, n_pred masked positions per row
+    and their labels) with a ragged attention mask: row lengths 64..128,
+    masked positions inside each row."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq))
+    lens = rng.randint(seq // 2, seq + 1, batch)
+    pos = np.stack([rng.choice(n, size=n_pred, replace=False)
+                    for n in lens])
+    labels = np.take_along_axis(ids, pos, 1)
+    mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int64)
+    t = lambda x: torch.as_tensor(x, dtype=torch.int64, device="cuda")
+    return (t(ids), None, t(mask), t(labels), None, t(pos))
+
+
+def _train_step(torch, model, seed, dtype):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    return TrainStep(model, AdamW(learning_rate=TRAIN["lr"],
+                                  weight_decay=TRAIN["weight_decay"]),
+                     compute_dtype=dtype, seed=seed)
+
+
+def _fa_counts(fa, reset=False):
+    f = fa.flash_attention
+    if reset:
+        f.launches_fwd = f.launches_dq = f.launches_dkv = 0
+    return {"flash_attention_fwd": f.launches_fwd,
+            "flash_attention_dq": f.launches_dq,
+            "flash_attention_dkv": f.launches_dkv}
+
+
+def phase_train(torch, seed):
+    """BERT-base pretraining: f32 masters, bf16 compute, AdamW, dropout
+    0.1, the same ragged batch every step."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    model = _bert(torch, seed)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _bert_batch(torch, model.config.vocab_size, TRAIN["batch"],
+                        TRAIN["seq"], TRAIN["n_pred"], seed)
+
+    def fresh(step_seed):
+        model.load_state_dict(init)
+        return _train_step(torch, model, step_seed, torch.bfloat16)
+
+    first = [fresh(s)(batch).item() for s in (1, 1, 2)]
+    check(first[0] == first[1], f"same seed, first losses {first[:2]} "
+          "differ")
+    check(first[0] != first[2], f"seeds 1 and 2 give one first loss "
+          f"{first[0]}")
+    step = fresh(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _fa_counts(fa, reset=True)          # the path's run: counts from 0
+    losses = [step(batch) for _ in range(TRAIN["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(batch) for _ in range(TRAIN["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _fa_counts(fa)
+    losses = [float(x) for x in losses]
+    n = TRAIN["warmup"] + TRAIN["steps"]
+    layers = model.config.num_hidden_layers
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not descend: {losses}")
+    check(all(c == layers * n for c in launches.values()),
+          f"launches {launches}, want {layers} layers x {n} steps each")
+    out = {"config": "BertConfig.base()", "batch": TRAIN["batch"],
+           "seq": TRAIN["seq"], "masked_per_row": TRAIN["n_pred"],
+           "compute_dtype": "bfloat16", "dropout": 0.1,
+           "steps": n, "timed_steps": TRAIN["steps"],
+           "seq_per_s": round(TRAIN["batch"] * TRAIN["steps"] / dt, 1),
+           "ms_per_step": round(dt / TRAIN["steps"] * 1e3, 3),
+           "first_loss_same_seed": first[:2], "first_loss_seed_2": first[2],
+           "losses": [round(x, 5) for x in losses], "launches": launches,
+           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2)}
+    log("train", **out)
+    return out, step, batch
+
+
+def phase_train_parity(torch, seed):
+    """f32, dropout off: 5 AdamW steps with the kernels on and off."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    model = _bert(torch, seed + 1, dropout=False)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _bert_batch(torch, model.config.vocab_size, PARITY["batch"],
+                        PARITY["seq"], TRAIN["n_pred"], seed + 1)
+    runs = {}
+    snap = flags.flags_snapshot()
+    try:
+        for on in (True, False):
+            flags.set_flags({"FLAGS_use_pallas_kernels": on})
+            model.load_state_dict(init)
+            step = _train_step(torch, model, seed, None)
+            before = _fa_counts(fa)
+            losses = [float(step(batch)) for _ in range(PARITY["steps"])]
+            after = _fa_counts(fa)
+            runs[on] = (losses, {n: p.detach().clone()
+                                 for n, p in model.named_parameters()},
+                        {k: after[k] - before[k] for k in after})
+    finally:
+        flags.flags_restore(snap)
+    layers = model.config.num_hidden_layers
+    check(all(c == layers * PARITY["steps"] for c in runs[True][2].values())
+          and not any(runs[False][2].values()),
+          f"parity launches on {runs[True][2]}, off {runs[False][2]}")
+    loss_err = max(abs(a - b) for a, b in zip(runs[True][0], runs[False][0]))
+    diffs = {n: (runs[True][1][n] - runs[False][1][n]).abs().max().item()
+             for n in runs[True][1]}
+    key_bias = {n: d for n, d in diffs.items() if n.endswith("k_proj.bias")}
+    rest = {n: d for n, d in diffs.items() if n not in key_bias}
+    check(len(key_bias) == model.config.num_hidden_layers,
+          f"parity: key biases found {sorted(key_bias)}")
+    worst = max(rest, key=rest.get)
+    worst_kb = max(key_bias.values())
+    check(all(np.isfinite(runs[True][0])) and loss_err <= PARITY_LOSS_ATOL,
+          f"parity: losses {runs[True][0]} vs {runs[False][0]}")
+    check(rest[worst] <= PARITY_PARAM_ATOL,
+          f"parity: {worst} differs by {rest[worst]}")
+    check(worst_kb <= PARITY_KEY_BIAS_ATOL,
+          f"parity: a key bias differs by {worst_kb}")
+    log("train_parity", dtype="float32", batch=PARITY["batch"],
+        seq=PARITY["seq"], steps=PARITY["steps"],
+        losses_kernels=runs[True][0], losses_plain=runs[False][0],
+        loss_max_abs_diff=loss_err, loss_atol=PARITY_LOSS_ATOL,
+        param_max_abs_diff=rest[worst], param_worst=worst,
+        param_atol=PARITY_PARAM_ATOL, key_bias_max_abs_diff=worst_kb,
+        key_bias_atol=PARITY_KEY_BIAS_ATOL)
+
+
+def phase_train_profile(torch, step, batch):
+    """Three bf16 training steps timed, then one traced with
+    torch.profiler: device busy time, kernel time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    out = {"step_ms": round(step_ms, 3), "step_ms_traced": round(traced_ms, 3)}
+    if busy <= 0:
+        out["device_busy_ms"] = "not measured (no CUDA events)"
+    else:
+        # the kernels of csrc/flash_attention.cu, by their demangled
+        # names (flash_decode.cu's are decode_*_kernel)
+        fa_ms = {k: sum(e.self_device_time_total for e in kernels
+                        if f"(anonymous namespace)::{k}<" in e.key) / 1e3
+                 for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")}
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+        out.update(
+            device_busy_ms=round(busy, 4),
+            # against the untraced step: tracing slows the host, not the
+            # device
+            device_idle_share=round(1 - busy / step_ms, 4),
+            kernel_launches=sum(e.count for e in kernels),
+            flash_attention_ms=fa_ms,
+            flash_attention_share=round(sum(fa_ms.values()) / busy, 4),
+            top_kernels=[{"name": e.key[:90], "calls": e.count,
+                          "ms": round(e.self_device_time_total / 1e3, 4)}
+                         for e in top])
+    log("train_profile", **out)
+
+
+# -- phase 9: batch invariance probe -----------------------------------------
+
+def phase_batch_probe(torch, model, seed, decode_steps=4):
+    """ROADMAP queue C: a served row at a short bucket differed from its
+    batch-1 generate().  One prompt prefilled and decoded alone and as
+    row 0 of an 8-row batch at the same bucket (32) and cache (48), the
+    batch's row fed the batch-1 run's tokens; every Linear, LayerNorm
+    and Embedding of the model records its input and output row, and the
+    first module call whose output row differs is reported with whether
+    its input row was equal (equal input, different output: the op
+    itself depends on the batch)."""
+    from torch import nn
+    from paddle_tpu_torch.text.generation import Generator
+    gen = Generator(model, seq_buckets=SHORT_GRID["seq_buckets"],
+                    max_len=SHORT_GRID["max_len"])
+    rows = _traffic(seed + 3, model.config.vocab_size, SHORT_REQUESTS,
+                    *SHORT_WAVES[1])
+    P = gen.prefill_bucket(max(r.size for r in rows))
+    C = gen.cache_bucket(P, SHORT_GRID["max_new_tokens"])
+    rec = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: rec.append((name, inp[0], out)))
+        for name, m in model.named_modules()
+        if isinstance(m, (nn.Linear, nn.LayerNorm, nn.Embedding))]
+
+    def run(batch_rows, forced=None):
+        ids, start = gen.pack_prompts(batch_rows, P)
+        start = torch.as_tensor(start, device="cuda")
+        calls, toks = [], []
+        with torch.inference_mode():
+            cache = model.init_cache(len(batch_rows), C)
+            x = torch.as_tensor(ids, device="cuda")
+            for i in range(decode_steps + 1):
+                rec.clear()
+                logits, cache = model.forward_cached(
+                    x, cache, 0 if i == 0 else P + i - 1, start)
+                last = logits[:, -1].float()
+                calls.append([(n, a[0].clone(), b[0].clone())
+                              for n, a, b in rec]
+                             + [("logits", last[0], last[0])])
+                tok = last.argmax(-1).to(torch.int32)
+                if forced is not None:
+                    tok[0] = forced[i]
+                toks.append(tok)
+                x = tok[:, None]
+        return calls, [int(t[0]) for t in toks]
+
+    try:
+        alone, toks = run(rows[:1])
+        batch, _ = run(rows, forced=toks)
+    finally:
+        for h in hooks:
+            h.remove()
+    first = None
+    for i, (a_calls, b_calls) in enumerate(zip(alone, batch)):
+        for (name, ia, oa), (_, ib, ob) in zip(a_calls, b_calls):
+            if not torch.equal(oa, ob):
+                first = {"call": "prefill" if i == 0 else f"decode {i}",
+                         "module": name,
+                         "input_row_equal": bool(torch.equal(ia, ib)),
+                         "output_max_abs_diff":
+                             (oa.float() - ob.float()).abs().max().item(),
+                         "out_shape_alone": list(oa.shape)}
+                break
+        if first is not None:
+            break
+    logits_diff = [(a[-1][2] - b[-1][2]).abs().max().item()
+                   for a, b in zip(alone, batch)]
+    log("batch_probe", prompt_len=int(rows[0].size), bucket=P, cache=C,
+        batch_rows=len(rows), steps=decode_steps,
+        first_divergence=first or "none",
+        logits_max_abs_diff_per_call=logits_diff)
+
+
 # -- main --------------------------------------------------------------------
 
 def main(argv=None):
@@ -586,11 +1121,30 @@ def main(argv=None):
     env = phase_env(torch)
     phase_build()
     worst, timing = phase_kernels(torch, args.seed)
+    fa_worst, fa_timing = phase_fa_kernels(torch, args.seed)
     model = _gpt2(torch, args.seed, torch.bfloat16)
     served = phase_serving(torch, model, args.seed)
     phase_profile(torch, model, args.seed)
+    phase_batch_probe(torch, model, args.seed)
     del model
     phase_e2e(torch, args.seed)
+    trained, step, batch = phase_train(torch, args.seed)
+    phase_train_profile(torch, step, batch)
+    del step, batch
+    phase_train_parity(torch, args.seed)
+    fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    fa_kernels = [
+        {"name": f"flash_attention_{k}", "route": "cuda", "source": fa_src,
+         "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": trained["launches"][f"flash_attention_{k}"],
+         "max_abs_err": fa_worst[k], "ms": fa_timing[k],
+         "plain_ms": fa_timing[k + "_plain"],
+         "bound_ms": fa_timing[k + "_bound"],
+         "bound_by": fa_timing[k + "_bound_by"],
+         # SDPA with the same mask: its forward; its backward is one
+         # call computing dQ, dK and dV together, listed for both
+         "library_ms": fa_timing["sdpa_fwd" if k == "fwd" else "sdpa_bwd"]}
+        for k, line in (("fwd", 67), ("dq", 192), ("dkv", 232))]
     src = "paddle_tpu_torch/csrc/flash_decode.cu"
     kernels = [
         {"name": "flash_decode", "route": "cuda", "source": src,
@@ -612,7 +1166,7 @@ def main(argv=None):
          "bound_by": timing["flash_decode_quant_bound_by"],
          # no single PyTorch call attends over int8 rows with scales
          "library_ms": None},
-    ]
+    ] + fa_kernels
     log("done", seconds=round(time.perf_counter() - t0, 1))
     print(env["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))

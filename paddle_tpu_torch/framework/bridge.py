@@ -6,7 +6,9 @@ array}`` dict (``encoder.layers.0.self_attn.q_proj.weight``,
 names, so the bridge maps name to name.  The one layout that differs is
 ``Linear``'s weight: Paddle stores it ``[in, out]``, torch ``[out, in]``,
 so those are transposed; Embedding and LayerNorm tensors copy as they
-are.
+are.  A tied parameter (BERT's MLM decoder weight is the word embedding)
+appears once in ``layer_state``, under its first name, as it does in
+``named_parameters()``; its other names are skipped here.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
     every name on either side must be matched and every shape must
     agree, or :class:`InvalidArgumentError` is raised before anything
     is written."""
-    own = module.state_dict()            # detached views of the storage
+    sd = module.state_dict()             # detached views of the storage
+    own = {n: t for n, t in sd.items() if n not in _tied_aliases(module, sd)}
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
@@ -54,3 +57,24 @@ def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
         for name, dst in own.items():
             dst.copy_(torch.from_numpy(np.ascontiguousarray(staged[name])))
     return module
+
+
+def _tied_aliases(module: nn.Module, sd) -> set:
+    """Names under which ``module`` registers a parameter or buffer that
+    an earlier name already holds (the names ``named_parameters()``
+    drops).  Each must share its first name's storage in ``sd``."""
+    first, aliases = {}, set()
+    named = list(module.named_parameters(remove_duplicate=False)) \
+        + list(module.named_buffers(remove_duplicate=False))
+    for name, t in named:
+        if id(t) not in first:
+            first[id(t)] = name
+            continue
+        src = first[id(t)]
+        if name in sd and src in sd \
+                and sd[name].data_ptr() != sd[src].data_ptr():
+            raise InvalidArgumentError(
+                f"load_jax_state: {name} is registered as {src} but does "
+                "not share its storage")
+        aliases.add(name)
+    return aliases

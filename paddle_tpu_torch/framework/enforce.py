@@ -1,8 +1,8 @@
-"""Error taxonomy of the serving path (PADDLE_ENFORCE's error codes).
+"""Error taxonomy of the port (PADDLE_ENFORCE's error codes).
 
 Counterpart of ``paddle_tpu/framework/enforce.py``: the same class names
-and codes, kept to the five the decode-serving path raises, so callers
-catch the same exception types on both packages.
+and codes, kept to the ones the serving and training paths raise, so
+callers catch the same exception types on both packages.
 """
 from __future__ import annotations
 
@@ -33,6 +33,10 @@ class OutOfRangeError(EnforceNotMet):
 
 class PreconditionNotMetError(EnforceNotMet):
     code = "PRECONDITION_NOT_MET"
+
+
+class UnimplementedError(EnforceNotMet):
+    code = "UNIMPLEMENTED"
 
 
 class UnavailableError(EnforceNotMet):

@@ -1,13 +1,13 @@
-"""Flag registry for the serving path.
+"""Flag registry of the port.
 
 Counterpart of ``paddle_tpu/framework/flags.py``: the same
 ``set_flags``/``get_flags``/``flag`` surface, the same ``FLAGS_xxx``
 environment seeding and the same names, defaults and validators for the
-flags the decode-serving path reads.  One default differs on purpose:
-``use_flash_decode`` is ON here.  The JAX package ships it OFF because
-the kernel was never measured on a TPU; that records a missing
-measurement, not a decision, and the CUDA kernel is the port's decode
-path.
+flags the decode-serving and training paths read.  One default differs
+on purpose: ``use_flash_decode`` is ON here.  The JAX package ships it
+OFF because the kernel was never measured on a TPU; that records a
+missing measurement, not a decision, and the CUDA kernel is the port's
+decode path.
 """
 from __future__ import annotations
 
@@ -127,3 +127,16 @@ define_flag("kv_cache_dtype",
             "dtype planes) or 'int8' (int8 rows + per-(token, head) f32 "
             "scale planes, dequantized inside the flash-decode kernel).",
             validator=lambda v: str(v).lower() in ("bf16", "int8"))
+
+# ---- Kernels and training -------------------------------------------------
+define_flag("use_pallas_kernels", True,
+            "Route non-cached attention on CUDA tensors through the flash-"
+            "attention CUDA kernels (ops/kernels/flash_attention.py), "
+            "forward and backward; a trainable mask runs plain attention.")
+define_flag("train_sentinel",
+            os.environ.get("PADDLE_TPU_SENTINEL", "").lower()
+            in ("1", "true", "yes", "on"),
+            "Numerics sentinel of TrainStep: a step whose loss or any "
+            "gradient is non-finite commits nothing (parameters and "
+            "optimizer moments keep their values) and backs off the "
+            "GradScaler.")

@@ -1,3 +1,3 @@
 from . import functional  # noqa: F401
 from .layer import (  # noqa: F401
-    MultiHeadAttention, TransformerEncoder, TransformerEncoderLayer)
+    Dropout, MultiHeadAttention, TransformerEncoder, TransformerEncoderLayer)

@@ -1,11 +1,14 @@
 """Attention functionals.
 
 Counterpart of ``paddle_tpu/nn/functional/attention.py``.  Layout is
-(B, N, S, H) throughout.  Prefill and the non-cached forward run the
-plain masked attention (``_sdpa_fn`` / ``_sdpa_mask_fn``: f32 logits and
-softmax, probabilities cast to q's dtype); a decode step with a
-contiguous validity window dispatches to the flash-decoding CUDA kernels
-when its tensors are on the GPU.
+(B, N, S, H) inside, (B, S, N, H) at ``scaled_dot_product_attention``.
+On CUDA tensors the non-cached attention (``attention_bnsh``, the
+training path) runs the flash-attention kernels forward and backward,
+and a decode step with a contiguous validity window the flash-decoding
+kernels.  Prefill (``cached_attention`` with Tq > 1), CPU tensors and a
+trainable mask run the plain masked attention (``_sdpa_fn`` /
+``_sdpa_mask_fn``: f32 logits and softmax, probabilities cast to q's
+dtype).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import math
 import torch
 
 from ...framework.flags import flag
+from ...ops.kernels import flash_attention as _fa
 from ...ops.kernels import flash_decode as _fd
 
 _NEG_INF = -1e30    # finite: a fully-masked row gets a uniform softmax,
@@ -99,8 +103,38 @@ def cached_attention(q, k, v, attn_mask=None, window=None, k_scale=None,
     return _sdpa_fn(q, k, v)
 
 
+def _use_flash_attention(q, mask):
+    """Dispatch gate of the non-cached attention: FLAGS_use_pallas_kernels,
+    tensors on CUDA and no trainable mask (the kernel's bias gets no
+    gradient).  The TPU gate's Sk >= 1024 crossover (MIN_SEQ_FOR_FLASH,
+    measured on a v5e) and its S % 128 condition are not asked: the
+    kernels take any length, and a shape they do not take raises there
+    instead of running plain."""
+    return q.is_cuda and flag("use_pallas_kernels") \
+        and not (mask is not None and mask.requires_grad)
+
+
 def attention_bnsh(q, k, v, attn_mask=None, is_causal=False):
     """(B, N, S, H) attention of the non-cached MultiHeadAttention."""
+    if _use_flash_attention(q, attn_mask):
+        return _fa.flash_attention(q, k, v, bias=attn_mask,
+                                   causal=bool(is_causal))
     if attn_mask is not None:
         return _sdpa_mask_fn(q, k, v, attn_mask, causal=bool(is_causal))
     return _sdpa_fn(q, k, v, causal=bool(is_causal))
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """Attention over (B, S, N, H) inputs (paddle-incubate's layout),
+    through :func:`attention_bnsh`; dropout applies to the output, drawn
+    from ``generator`` (default: the active one, see
+    ``framework.random``)."""
+    out = attention_bnsh(query.transpose(1, 2), key.transpose(1, 2),
+                         value.transpose(1, 2), attn_mask=attn_mask,
+                         is_causal=is_causal)
+    if dropout_p and training:
+        from .common import dropout
+        out = dropout(out, dropout_p, training=training, generator=generator)
+    return out.transpose(1, 2)

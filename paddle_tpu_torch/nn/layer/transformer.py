@@ -18,6 +18,8 @@ from torch import nn
 
 from ...framework.flags import flag
 from ..functional.attention import attention_bnsh, cached_attention
+from ..functional.common import dropout
+from .common import Dropout
 
 
 def ring_block_write(plane, new, pos, axis=None):
@@ -142,7 +144,7 @@ class MultiHeadAttention(nn.Module):
             out = cached_attention(q, cache.k, cache.v, attn_mask=attn_mask,
                                    window=decode_window)
         if self.dropout:
-            out = F.dropout(out, self.dropout, training=self.training)
+            out = dropout(out, self.dropout, training=self.training)
         return self.out_proj(self._merge_heads(out)), cache
 
     def forward(self, query, key=None, value=None, attn_mask=None,
@@ -156,8 +158,10 @@ class MultiHeadAttention(nn.Module):
         k = self._split_heads(self.k_proj(key))
         v = self._split_heads(self.v_proj(value))
         out = attention_bnsh(q, k, v, attn_mask=attn_mask)
+        # dropout on the attention OUTPUT, as the JAX layer does: the
+        # flash kernels need no dropout of their own
         if self.dropout:
-            out = F.dropout(out, self.dropout, training=self.training)
+            out = dropout(out, self.dropout, training=self.training)
         return self.out_proj(self._merge_heads(out))
 
 
@@ -173,12 +177,12 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                             **fk)
         self.linear1 = nn.Linear(d_model, dim_feedforward, **fk)
-        self.dropout = nn.Dropout(act_dropout)
+        self.dropout = Dropout(act_dropout)
         self.linear2 = nn.Linear(dim_feedforward, d_model, **fk)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, **fk)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, **fk)
-        self.dropout1 = nn.Dropout(dropout)
-        self.dropout2 = nn.Dropout(dropout)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
         self.activation = getattr(F, activation)     # gelu: exact (erf)
 
     def forward(self, src, src_mask=None, cache=None, cache_position=None,

@@ -26,13 +26,19 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # one library per source file; each entry lists the C functions it
 # exports with their ctypes signature (c_void_p for every pointer and the
 # stream, or ctypes would pass them as 32-bit ints)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES: Dict[str, Dict[str, list]] = {
     "flash_decode": {
         "flash_decode_launch":
             [_P] * 9 + [_I] * 5 + [_P],
         "flash_decode_quant_launch":
             [_P] * 11 + [_I] * 5 + [_P],
+    },
+    # tensors, then the int64 dims array, scale, causal, dtype, stream
+    "flash_attention": {
+        "flash_attn_fwd_launch": [_P] * 7 + [_F, _I, _I, _P],
+        "flash_attn_dq_launch": [_P] * 9 + [_F, _I, _I, _P],
+        "flash_attn_dkv_launch": [_P] * 10 + [_F, _I, _I, _P],
     },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -14,6 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...framework.place import DeviceLike, resolve_device
+from ...nn.functional.loss import cross_entropy
+from ...nn.layer.common import Dropout
 from ...nn.layer.transformer import (TransformerEncoder,
                                      TransformerEncoderLayer)
 
@@ -65,7 +67,7 @@ class GPTModel(nn.Module):
         self.register_buffer("_lm_head", head, persistent=False)
         self.wpe = nn.Embedding(cfg.max_position_embeddings,
                                 cfg.hidden_size, **fk)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout)
         layer = TransformerEncoderLayer(
             cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
             dropout=cfg.dropout, activation="gelu", normalize_before=True,
@@ -108,9 +110,9 @@ class GPTModel(nn.Module):
         logits = self._logits(h)
         if labels is None:
             return logits
-        return F.cross_entropy(
-            logits[:, :-1].reshape(-1, self.config.vocab_size).float(),
-            labels[:, 1:].reshape(-1).long())
+        return cross_entropy(
+            logits[:, :-1].reshape(-1, self.config.vocab_size),
+            labels[:, 1:].reshape(-1))
 
     # -- incremental decoding (static-shape KV ring cache) -------------------
     def init_cache(self, batch, max_len, dtype=None):

@@ -13,8 +13,11 @@ import torch
 
 from paddle_tpu_torch import serving
 from paddle_tpu_torch.framework.enforce import PreconditionNotMetError
+from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.parallel import TrainStep
 from paddle_tpu_torch.text.generation import Generator
-from paddle_tpu_torch.text.models import GPTConfig, GPTModel
+from paddle_tpu_torch.text.models import (BertConfig, BertForPretraining,
+                                          GPTConfig, GPTModel)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "paddle_tpu")
@@ -54,6 +57,10 @@ def test_package_imports_with_jax_unimportable():
             "import paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.text, paddle_tpu_torch.framework.bridge\n"
             "import paddle_tpu_torch.ops.kernels.flash_decode\n"
+            "import paddle_tpu_torch.ops.kernels.flash_attention\n"
+            "import paddle_tpu_torch.optimizer, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.parallel, paddle_tpu_torch.nn\n"
+            "from paddle_tpu_torch.text.models import BertForPretraining\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -76,3 +83,20 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     out = Generator(m, device="cpu", seq_buckets=(8,), max_len=16) \
         .generate(np.ones((1, 3), np.int64), max_new_tokens=2)
     assert out.device.type == "cpu" and out.shape == (1, 2)
+
+
+def test_training_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BertConfig.tiny()
+    with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+        BertForPretraining(cfg)
+    with pytest.raises(PreconditionNotMetError):
+        BertForPretraining(cfg, device="cuda")
+    m = BertForPretraining(cfg, device="cpu")
+    with pytest.raises(PreconditionNotMetError):
+        TrainStep(m, AdamW())
+    step = TrainStep(m, AdamW(), device="cpu")
+    ids = np.ones((2, 8), np.int64)
+    loss = step((ids, None, None, ids[:, :2], None,
+                 np.zeros((2, 2), np.int64)))
+    assert loss.device.type == "cpu" and np.isfinite(float(loss))

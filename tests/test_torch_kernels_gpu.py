@@ -1,5 +1,6 @@
-"""The port's CUDA flash-decode kernels on the card, against their plain
-PyTorch versions on the same inputs.
+"""The port's CUDA kernels on the card (flash-decode B3/B4,
+flash-attention B1/B2), against their plain PyTorch versions on the same
+inputs.
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card, where JAX is not installed (its conftest is skipped there)::
@@ -7,7 +8,8 @@ the card, where JAX is not installed (its conftest is skipped there)::
     python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest
 
 Here, without a card, every test skips: a CUDA kernel has no CPU mode.
-Tolerances: f32 atol 1e-5 (summation order of the split merge); bf16
+Tolerances of the decode kernels (the flash-attention ones are stated at
+``FA_TOL``): f32 atol 1e-5 (summation order of the split merge); bf16
 atol 1e-2 (the kernel rounds its output to bf16, the plain version runs
 in f32 on the same bf16 inputs: half a bf16 step at |out| < 4), and 2^-6
 of each (batch, head) row's largest |out| against the plain version run
@@ -130,3 +132,114 @@ def test_decode_step_on_cuda_launches_the_kernel_at_any_cache_length(
     assert (fd.flash_decode.launches - n0,
             fd.flash_decode_quant.launches - nq0) \
         == ((0, 1) if kv == "int8" else (1, 0))
+
+
+# -- flash attention (B1 forward, B2 dQ and dK/dV) ----------------------------
+# (B, N, Sq, Sk, H, causal, bias shape or None)
+FA_CASES = {
+    "s128_h64": (2, 2, 128, 128, 64, False, None),
+    "s200_causal": (2, 2, 200, 200, 64, True, None),
+    "cross_causal": (1, 2, 128, 384, 64, True, None),
+    "h128_pad_bias": (2, 2, 256, 256, 128, False, (2, 1, 1, 256)),
+    "h256_shared_bias": (1, 2, 128, 128, 256, False, (1, 1, 128, 128)),
+    "full_bias_causal": (2, 2, 128, 128, 64, True, (2, 2, 128, 128)),
+    "ragged_77": (1, 3, 77, 77, 64, False, (1, 1, 1, 77)),
+}
+
+
+def _fa_case(name, dev, dtype, seed=0):
+    B, N, Sq, Sk, H, causal, bshape = FA_CASES[name]
+    rng = np.random.RandomState(seed)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    q, k, v = t(B, N, Sq, H), t(B, N, Sk, H), t(B, N, Sk, H)
+    do = t(B, N, Sq, H)
+    bias = None
+    if bshape is not None:
+        bias = torch.from_numpy(np.where(rng.rand(*bshape) < 0.2, -1e4,
+                                         0.0).astype(np.float32)).to(dev)
+    return ([x.to(dev, dtype) for x in (q, k, v, do)], bias, causal)
+
+
+def _max_rel(got, want):
+    """Largest |got - want| over max(1, max |want|)."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1.0)).item()
+
+
+# f32: both sum in f32, in other orders, over <= 384 terms: ~1e-6 of the
+# largest value; bf16 against the plain version on the same bf16 inputs,
+# which rounds p, ds and the outputs at the kernels' points: they differ
+# where summation order moves a value across a bf16 rounding boundary,
+# one bf16 step (2^-8 of the value) at most per output: 2^-6 of the
+# tensor's largest |value| leaves a margin of 4.
+FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FA_CASES))
+def test_flash_attention_kernels_match_plain_versions(cuda, name, dtype):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    (q, k, v, do), bias, causal = _fa_case(name, cuda, dtype)
+    n0 = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_dq,
+          fa.flash_attention.launches_dkv)
+    o, lse = fa.flash_fwd(q, k, v, bias, causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, causal)
+    dd = fa.flash_dd(o_ref, do)
+    dq = fa.flash_bwd_dq(q, k, v, bias, lse_ref, do, dd, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, bias, lse_ref, do, dd, causal)
+    want = fa.flash_bwd_reference(q, k, v, bias, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    tol = FA_TOL[dtype]
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == q.shape[:3]
+    assert _max_rel(o, o_ref) <= tol
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert bool(torch.isfinite(got).all())
+        assert _max_rel(got, ref) <= tol
+    if dtype == torch.bfloat16:     # against f32 plain on the same inputs
+        o32, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(),
+                                        bias, causal)
+        torch.testing.assert_close(o.float(), o32, atol=1e-2, rtol=0)
+    n1 = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_dq,
+          fa.flash_attention.launches_dkv)
+    assert tuple(b - a for a, b in zip(n0, n1)) == (1, 1, 1)
+
+
+def test_flash_attention_autograd_and_dispatch_on_cuda(cuda):
+    """attention_bnsh on CUDA sends forward and backward through the
+    kernels (no sequence-length gate), and a trainable mask runs plain."""
+    from paddle_tpu_torch.nn.functional.attention import attention_bnsh
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    (q, k, v, do), bias, _ = _fa_case("h128_pad_bias", cuda, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = fa.flash_attention.launches_fwd, fa.flash_attention.launches_dkv
+    out = attention_bnsh(*leaves, attn_mask=bias)
+    out.backward(do)
+    assert (fa.flash_attention.launches_fwd - n0[0],
+            fa.flash_attention.launches_dkv - n0[1]) == (1, 1)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias)
+    want = fa.flash_bwd_reference(q, k, v, bias, o_ref, lse_ref, do)
+    assert _max_rel(out.detach(), o_ref) <= 1e-5
+    for t, ref in zip(leaves, want):
+        assert _max_rel(t.grad, ref) <= 1e-5
+    trainable = bias.clone().requires_grad_()
+    attention_bnsh(q, k, v, attn_mask=trainable)
+    assert fa.flash_attention.launches_fwd - n0[0] == 1
+
+
+def test_flash_attention_raises_on_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    (q, k, v, _), _, _ = _fa_case("s128_h64", cuda, torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention(k[:, :, :100], q[:, :, :50], q[:, :, :50],
+                           causal=True)                       # Sq > Sk
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, bias=torch.zeros(3, 1, 1, 128,
+                                                     device=cuda))

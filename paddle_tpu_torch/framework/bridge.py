@@ -1,11 +1,13 @@
 """Weight bridge from the JAX package's functional state to a port module.
 
-``paddle_tpu``'s ``layer_state(layer)[0]`` is a flat ``{dotted name:
-array}`` dict (``encoder.layers.0.self_attn.q_proj.weight``,
-``encoder.norm.bias``...).  The port's modules carry the same dotted
-names, so the bridge maps name to name.  The one layout that differs is
-``Linear``'s weight: Paddle stores it ``[in, out]``, torch ``[out, in]``,
-so those are transposed; Embedding and LayerNorm tensors copy as they
+``paddle_tpu``'s ``layer_state(layer)`` gives flat ``{dotted name:
+array}`` dicts of the parameters (``[0]``: ``encoder.layers.0.self_attn.
+q_proj.weight``, ``conv1.weight``...) and of the buffers (``[1]``:
+BatchNorm's ``bn1._mean``, ``bn1._variance``...).  The port's modules
+carry the same dotted names, so the bridge maps name to name.  The one
+layout that differs is ``Linear``'s weight: Paddle stores it ``[in,
+out]``, torch ``[out, in]``, so those are transposed; Conv2D weights
+(OIHW in both), Embedding, LayerNorm and BatchNorm tensors copy as they
 are.  A tied parameter (BERT's MLM decoder weight is the word embedding)
 appears once in ``layer_state``, under its first name, as it does in
 ``named_parameters()``; its other names are skipped here.
@@ -24,11 +26,13 @@ __all__ = ["load_jax_state"]
 
 
 def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
-    """Copy ``params`` (numpy arrays keyed by the JAX dotted names) into
+    """Copy ``params`` (numpy arrays keyed by the JAX dotted names: the
+    parameters of ``layer_state(layer)[0]`` and, in the same mapping, the
+    buffers of ``[1]``, such as BatchNorm's ``_mean``/``_variance``) into
     ``module``'s parameters and persistent buffers, in place.  Strict:
-    every name on either side must be matched and every shape must
-    agree, or :class:`InvalidArgumentError` is raised before anything
-    is written."""
+    every name on either side must be matched and every shape must agree,
+    or :class:`InvalidArgumentError` is raised before anything is
+    written."""
     sd = module.state_dict()             # detached views of the storage
     own = {n: t for n, t in sd.items() if n not in _tied_aliases(module, sd)}
     missing = sorted(set(own) - set(params))

@@ -3,11 +3,20 @@
 Counterpart of ``paddle_tpu/framework/flags.py``: the same
 ``set_flags``/``get_flags``/``flag`` surface, the same ``FLAGS_xxx``
 environment seeding and the same names, defaults and validators for the
-flags the decode-serving and training paths read.  One default differs
-on purpose: ``use_flash_decode`` is ON here.  The JAX package ships it
-OFF because the kernel was never measured on a TPU; that records a
-missing measurement, not a decision, and the CUDA kernel is the port's
-decode path.
+flags the decode-serving and training paths read.  Three defaults
+differ on purpose:
+
+* ``use_flash_decode`` is ON here.  The JAX package ships it OFF because
+  the kernel was never measured on a TPU; that records a missing
+  measurement, not a decision, and the CUDA kernel is the port's decode
+  path.
+* ``use_pallas_fused_bn`` and ``use_pallas_fused_conv`` are ON here.  The
+  JAX package ships them OFF from v5e measurements (an opaque kernel
+  between XLA's conv and its epilogue broke XLA's own fusion there); those
+  numbers carry no weight on the card, and the CUDA kernels B5-B7 are the
+  port's ResNet path.  As in the JAX package, the legacy environment
+  variables ``PADDLE_TPU_PALLAS_BN=1`` and ``PADDLE_TPU_PALLAS_CONV=1``
+  turn them on too (:func:`fused_bn_enabled`, :func:`fused_conv_enabled`).
 """
 from __future__ import annotations
 
@@ -140,3 +149,25 @@ define_flag("train_sentinel",
             "gradient is non-finite commits nothing (parameters and "
             "optimizer moments keep their values) and backs off the "
             "GradScaler.")
+define_flag("use_pallas_fused_bn", True,
+            "Route channels-last train-mode batch norm on CUDA tensors "
+            "through the fused batch-norm CUDA kernels (ops/kernels/"
+            "fused_bn.py: B5 forward, B6 backward) when M is a multiple "
+            "of 8.")
+define_flag("use_pallas_fused_conv", True,
+            "Route eligible NHWC conv+BN(+ReLU) training sites through the "
+            "fused conv CUDA kernel and the batch-norm epilogue kernels "
+            "(ops/kernels/fused_conv.py: B7, then B5 apply; B6 backward), "
+            "with the space-to-depth 7x7 stem.")
+
+
+def fused_bn_enabled() -> bool:
+    """FLAGS_use_pallas_fused_bn, or the legacy PADDLE_TPU_PALLAS_BN=1."""
+    return bool(flag("use_pallas_fused_bn")) or \
+        os.environ.get("PADDLE_TPU_PALLAS_BN", "0") == "1"
+
+
+def fused_conv_enabled() -> bool:
+    """FLAGS_use_pallas_fused_conv, or the legacy PADDLE_TPU_PALLAS_CONV=1."""
+    return bool(flag("use_pallas_fused_conv")) or \
+        os.environ.get("PADDLE_TPU_PALLAS_CONV", "0") == "1"

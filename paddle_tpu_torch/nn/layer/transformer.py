@@ -6,6 +6,13 @@ TransformerEncoder), written as ``torch.nn.Module``s.  Parameter names
 match the JAX package's dotted paths one to one (``q_proj.weight``,
 ``linear1.bias``, ``norm2.weight``...), so the weight bridge maps name
 to name.
+
+The cached (serving) forward multiplies in fixed row chunks
+(``pad_rows``, ``rows_linear``, ``batch_invariant_linear`` in
+``nn/functional/common.py``): a row's projections then do not depend on
+the rows batched with it, so a served row equals its batch-1
+``generate()`` bit for bit, as the JAX package's rows are across pack
+compositions.  The training forward keeps plain ``nn.Linear`` calls.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ from torch import nn
 
 from ...framework.flags import flag
 from ..functional.attention import attention_bnsh, cached_attention
-from ..functional.common import dropout
+from ..functional.common import (batch_invariant_linear, dropout, pad_rows,
+                                 rows_linear)
 from .common import Dropout
 
 
@@ -122,9 +130,12 @@ class MultiHeadAttention(nn.Module):
         """Project the new tokens, write their K/V into the ring at
         ``cache_position`` and attend the new queries over the whole cache
         under the caller's validity mask.  Returns (out, cache)."""
-        q = self._split_heads(self.q_proj(query))
-        k_new = self._split_heads(self.k_proj(query))
-        v_new = self._split_heads(self.v_proj(query))
+        # the three projections share one row-padded copy of the input
+        xp, n = pad_rows(query)
+        q, k_new, v_new = (
+            self._split_heads(rows_linear(xp, p.weight, p.bias)[:n]
+                              .reshape(*query.shape[:-1], -1))
+            for p in (self.q_proj, self.k_proj, self.v_proj))
         if isinstance(cache, self.QuantRingCache):
             kq, ks = quantize_kv_rows(k_new)
             vq, vs = quantize_kv_rows(v_new)
@@ -145,7 +156,9 @@ class MultiHeadAttention(nn.Module):
                                    window=decode_window)
         if self.dropout:
             out = dropout(out, self.dropout, training=self.training)
-        return self.out_proj(self._merge_heads(out)), cache
+        return batch_invariant_linear(self._merge_heads(out),
+                                      self.out_proj.weight,
+                                      self.out_proj.bias), cache
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, cache_position=None, decode_window=None):
@@ -202,7 +215,17 @@ class TransformerEncoderLayer(nn.Module):
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
-        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        if cache is None:
+            src = self.linear2(self.dropout(self.activation(
+                self.linear1(src))))
+        else:
+            # the FFN stays row-padded from linear1's input to linear2's
+            # output: one padding copy for both GEMMs
+            hp, n = pad_rows(src)
+            h = rows_linear(hp, self.linear1.weight, self.linear1.bias)
+            h = rows_linear(self.dropout(self.activation(h)),
+                            self.linear2.weight, self.linear2.bias)
+            src = h[:n].reshape(src.shape)
         src = residual + self.dropout2(src)
         if not self.normalize_before:
             src = self.norm2(src)

@@ -27,6 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # exports with their ctypes signature (c_void_p for every pointer and the
 # stream, or ctypes would pass them as 32-bit ints)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SOURCES: Dict[str, Dict[str, list]] = {
     "flash_decode": {
         "flash_decode_launch":
@@ -39,6 +40,21 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "flash_attn_fwd_launch": [_P] * 7 + [_F, _I, _I, _P],
         "flash_attn_dq_launch": [_P] * 9 + [_F, _I, _I, _P],
         "flash_attn_dkv_launch": [_P] * 10 + [_F, _I, _I, _P],
+    },
+    # tensors, then M, C, (relu,) dtype, stream; bn_chunks sizes the
+    # partials buffers of the two reductions
+    "fused_bn": {
+        "bn_chunks": [_L, _I, _I],
+        "bn_stats_launch": [_P] * 5 + [_L, _I, _I, _P],
+        "bn_apply_launch": [_P] * 4 + [_L, _I, _I, _I, _P],
+        "bn_bwd_reduce_launch": [_P] * 8 + [_L, _I, _I, _I, _P],
+        "bn_bwd_dx_launch": [_P] * 8 + [_L, _I, _I, _I, _P],
+    },
+    # tensors, the int64 dims array, dtype, stream; conv_tiles sizes the
+    # partials buffers
+    "fused_conv": {
+        "conv_tiles": [_L],
+        "conv_stats_launch": [_P] * 8 + [_I, _P],
     },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -59,10 +75,14 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, every header of
+    ``csrc`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            h.update(path.encode() + b"\0" + f.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}_{digest[:12]}.so")
 
 

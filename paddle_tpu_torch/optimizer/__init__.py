@@ -1,2 +1,2 @@
 from . import lr  # noqa: F401
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import Adam, AdamW, Momentum, Optimizer  # noqa: F401

@@ -1,4 +1,4 @@
-"""Optimizers: the base class, Adam and AdamW.
+"""Optimizers: the base class, Momentum, Adam and AdamW.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``.  ``step()`` updates
 every parameter that has a gradient, in place, with f32 moments; the
@@ -13,6 +13,11 @@ with ``wd`` the decoupled decay of AdamW (0 for Adam, whose
 the step count.  Parameters are named: pass ``model.named_parameters()``
 for names that ``apply_decay_param_fun`` and ``state_dict`` can use (a
 ``TrainStep`` names them from its layer either way).
+
+``Momentum`` is the JAX package's ``_momentum_rule`` with an f32
+velocity: ``v = mu v + g``, then ``p = p - lr v``, or with Nesterov
+``p = p - lr (g + mu v)``; its ``weight_decay`` is the coupled L2 term
+added to the gradient.
 """
 from __future__ import annotations
 
@@ -62,6 +67,24 @@ def adam_update(params, grads, m, v, lr, beta1, beta2, eps, t, wd=0.0):
         torch._foreach_add_(upd, pf, alpha=_f32(wd))
     torch._foreach_mul_(upd, _f32(lr))
     torch._foreach_sub_(pf, upd)
+    for p, f in zip(params, pf):
+        if f is not p:
+            p.copy_(f)
+
+
+def momentum_update(params, grads, velocity, lr, mu, nesterov=False):
+    """One momentum update over lists of tensors, in place on ``params``
+    (any float dtype, updated through f32) and the f32 ``velocity``."""
+    grads = [g.float() for g in grads]
+    pf = [p if p.dtype == torch.float32 else p.float() for p in params]
+    torch._foreach_mul_(velocity, _f32(mu))
+    torch._foreach_add_(velocity, grads)
+    if nesterov:
+        step = torch._foreach_mul(velocity, _f32(mu))
+        torch._foreach_add_(step, grads)
+    else:
+        step = velocity
+    torch._foreach_sub_(pf, torch._foreach_mul(step, _f32(lr)))
     for p, f in zip(params, pf):
         if f is not p:
             p.copy_(f)
@@ -158,6 +181,27 @@ class Optimizer:
                         torch.as_tensor(state[key]))
 
     set_dict = set_state_dict
+
+
+class Momentum(Optimizer):
+    _state_names = ["velocity"]
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._nesterov = bool(use_nesterov)
+
+    def _apply(self, pg):
+        grads = [g for _, _, g in pg]
+        if self._weight_decay:
+            # coupled L2: grad += wd * param
+            grads = [g.float() + self._weight_decay * p.float()
+                     for (_, p, _), g in zip(pg, grads)]
+        momentum_update([p for _, p, _ in pg], grads,
+                        [self._state("velocity", n, p) for n, p, _ in pg],
+                        self.get_lr(), self._momentum, self._nesterov)
 
 
 class Adam(Optimizer):

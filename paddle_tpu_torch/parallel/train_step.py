@@ -2,7 +2,12 @@
 
 Counterpart of ``paddle_tpu/parallel/train_step.py`` (``TrainStep``) on
 one device.  One call runs forward, loss, backward and the optimizer
-update over the layer's f32 master parameters:
+update over the layer's f32 master parameters.  The loss is
+``loss_fn(layer(*inputs), label)`` when a ``loss_fn`` is given (e.g.
+``nn.CrossEntropyLoss()``), else the layer's own output from
+``layer(*inputs[, label])``.  Buffers (BatchNorm's running statistics)
+are passed as they are, never cast, and a layer updates them in place
+once per forward (once per step without accumulation).  The options:
 
 * ``compute_dtype``: the masters are cast inside the step
   (``torch.func.functional_call`` over cast copies, as JAX's
@@ -40,11 +45,12 @@ _NOT_PORTED = {"mesh": (None,), "remat": (False,), "zero": (0,),
 
 
 class TrainStep:
-    """``loss = layer(*inputs[, label])``, its gradient and one optimizer
+    """``loss = loss_fn(layer(*inputs), label)`` (or ``layer(*inputs[,
+    label])`` without a ``loss_fn``), its gradient and one optimizer
     update per call.  Returns the step's f32 loss (the mean over
     microbatches) as a 0-d tensor."""
 
-    def __init__(self, layer, optimizer, *, mesh=None,
+    def __init__(self, layer, optimizer, loss_fn=None, *, mesh=None,
                  remat: bool = False, zero: int = 0,
                  accumulate_steps: int = 1, seed: int = 0,
                  compute_dtype=None, localsgd_k: int = 0,
@@ -68,6 +74,7 @@ class TrainStep:
                 f"parameters are on {on}")
         self.layer = layer
         self.optimizer = optimizer
+        self.loss_fn = loss_fn
         self.accumulate_steps = int(accumulate_steps)
         self.seed = int(seed)
         self.compute_dtype = compute_dtype
@@ -98,10 +105,16 @@ class TrainStep:
                       for n, p in params.items()}
             inputs = tuple(x.to(cd) if x is not None and x.is_floating_point()
                            else x for x in inputs)
-        args = inputs if label is None else inputs + (label,)
-        out = torch.func.functional_call(self.layer,
-                                         {**params, **self._buffers}, args)
-        loss = out[0] if isinstance(out, (tuple, list)) else out
+        state = {**params, **self._buffers}
+        if self.loss_fn is None:
+            args = inputs if label is None else inputs + (label,)
+            out = torch.func.functional_call(self.layer, state, args)
+            loss = out[0] if isinstance(out, (tuple, list)) else out
+        else:
+            out = torch.func.functional_call(self.layer, state, inputs)
+            if isinstance(out, (tuple, list)):
+                out = out[0]
+            loss = self.loss_fn(out, label)
         return loss.float().mean()
 
     def _split(self, x):

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...framework.place import DeviceLike, resolve_device
+from ...nn.functional.common import batch_invariant_linear
 from ...nn.functional.loss import cross_entropy
 from ...nn.layer.common import Dropout
 from ...nn.layer.transformer import (TransformerEncoder,
@@ -57,8 +58,10 @@ class GPTModel(nn.Module):
         # the unaligned width 50257 cuBLAS picks different kernels for
         # different batch sizes, and one row's logits move by a bf16 ulp
         # with the batch it rides; at an aligned width they do not
-        # (chip_smoke.py measures both).  Row-independent logits are what
-        # makes a served decode equal a batch-1 generate() token for token.
+        # (chip_smoke.py measures both).  The serving path also multiplies
+        # it in fixed row chunks (batch_invariant_linear).  Row-independent
+        # logits are what makes a served decode equal a batch-1
+        # generate() token for token.
         rows = -(-cfg.vocab_size // _HEAD_ALIGN) * _HEAD_ALIGN
         head = torch.zeros((rows, cfg.hidden_size), **fk)
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
@@ -76,13 +79,14 @@ class GPTModel(nn.Module):
             layer, cfg.num_layers,
             norm=nn.LayerNorm(cfg.hidden_size, eps=1e-5, **fk))
 
-    def _logits(self, h):
+    def _logits(self, h, rows_invariant=False):
         if self._lm_head.data_ptr() != self.wte.weight.data_ptr():
             raise RuntimeError(
                 "the LM head no longer shares the embedding's storage "
                 "(the model was copied with .to()/.cuda()); build it with "
                 "the device and dtype it should run in")
-        return F.linear(h, self._lm_head)[..., :self.config.vocab_size]
+        head = batch_invariant_linear if rows_invariant else F.linear
+        return head(h, self._lm_head)[..., :self.config.vocab_size]
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
@@ -160,7 +164,7 @@ class GPTModel(nn.Module):
         h, new_cache = self.encoder(h, mask, cache=cache,
                                     cache_position=pos % C,
                                     decode_window=window)
-        return self._logits(h), new_cache
+        return self._logits(h, rows_invariant=True), new_cache
 
     def generate(self, input_ids, lengths=None, max_new_tokens=32,
                  eos_token_id=None):

@@ -58,6 +58,11 @@ def test_package_imports_with_jax_unimportable():
             "paddle_tpu_torch.text, paddle_tpu_torch.framework.bridge\n"
             "import paddle_tpu_torch.ops.kernels.flash_decode\n"
             "import paddle_tpu_torch.ops.kernels.flash_attention\n"
+            "import paddle_tpu_torch.ops.kernels.fused_bn\n"
+            "import paddle_tpu_torch.ops.kernels.fused_conv\n"
+            "from paddle_tpu_torch.vision.models import resnet50\n"
+            "from paddle_tpu_torch.nn import CrossEntropyLoss\n"
+            "from paddle_tpu_torch.optimizer import Momentum\n"
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.amp, "
             "paddle_tpu_torch.parallel, paddle_tpu_torch.nn\n"
             "from paddle_tpu_torch.text.models import BertForPretraining\n"
@@ -99,4 +104,21 @@ def test_training_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     ids = np.ones((2, 8), np.int64)
     loss = step((ids, None, None, ids[:, :2], None,
                  np.zeros((2, 2), np.int64)))
+    assert loss.device.type == "cpu" and np.isfinite(float(loss))
+
+
+def test_resnet_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18, resnet50
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+        resnet50(data_format="NHWC")
+    m = resnet18(data_format="NHWC", num_classes=4, device="cpu")
+    opt = Momentum(learning_rate=0.1, momentum=0.9)
+    with pytest.raises(PreconditionNotMetError):
+        TrainStep(m, opt, loss_fn=CrossEntropyLoss())
+    step = TrainStep(m, opt, loss_fn=CrossEntropyLoss(), device="cpu")
+    loss = step((np.random.RandomState(0).randn(2, 16, 16, 3)
+                 .astype(np.float32),), np.array([0, 3]))
     assert loss.device.type == "cpu" and np.isfinite(float(loss))

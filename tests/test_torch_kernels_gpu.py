@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card (flash-decode B3/B4,
-flash-attention B1/B2), against their plain PyTorch versions on the same
-inputs.
+flash-attention B1/B2, fused batch norm B5/B6, fused conv B7), against
+their plain PyTorch versions on the same inputs.
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card, where JAX is not installed (its conftest is skipped there)::
@@ -243,3 +243,165 @@ def test_flash_attention_raises_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, bias=torch.zeros(3, 1, 1, 128,
                                                      device=cuda))
+
+
+# -- fused batch norm (B5, B6) and the fused conv (B7) -----------------------
+#
+# Tolerances, each kernel against its plain version on the same inputs:
+#  * B5 apply and B6 dx are elementwise and round x·scale + shift and
+#    a·dy' + b·x + c operation by operation, as the plain version's tensor
+#    ops do: the results are equal, in f32 and after the rounding to bf16;
+#  * B5 stats and B6 reduce sum the same f32 terms in another order:
+#    rtol 1e-5, atol 1e-5 on the moments, 1e-4 on the raw sums of M terms;
+#  * B7 sums kh·kw·Cin f32 products in another order than cuDNN's f32 conv
+#    (TF32 off): 1e-4 of max(1, max|y|) in f32; in bf16 both round the
+#    f32 result, and a value near a rounding boundary may land one bf16
+#    step apart: 2^-7 of max|y|, one step of the largest output.  Its
+#    moments come from the f32 accumulator in both: rtol 1e-4, atol 1e-5.
+
+BN_CASES = {
+    "m512_c64": (512, 64),
+    "m1000_c256": (1000, 256),      # M no multiple of a row chunk
+    "m96_c12": (96, 12),            # C no multiple of the vector width
+    "m64_c2048": (64, 2048),        # more than one column tile in f32
+}
+
+CONV_CASES = {   # N, H, W, Cin, Cout, k, stride, pad
+    "3x3_s1": (2, 8, 8, 16, 32, 3, 1, 1),
+    "3x3_s2": (2, 9, 9, 16, 24, 3, 2, 1),
+    "1x1_s1": (2, 8, 8, 64, 64, 1, 1, 0),
+    "1x1_s2": (2, 8, 8, 32, 64, 1, 2, 0),
+    "5x5_s1": (2, 6, 6, 8, 16, 5, 1, 2),
+    "s2d_stem": (2, 11, 11, 12, 64, 4, 1, 0),
+    "odd_widths": (1, 7, 5, 20, 36, 3, 1, 1),   # Cin, Cout off the vectors
+    "cin4_cout6": (2, 5, 5, 4, 6, 3, 1, 1),
+}
+
+
+def _bn_inputs(dev, M, C, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
+    x = (t(M, C) * 2 + 0.5).to(dtype)
+    return (x, t(M, C).to(dtype), t(C), t(C) * 0.5, t(C), t(C), t(C))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BN_CASES))
+def test_fused_bn_kernels_match_plain_versions(cuda, name, dtype, relu):
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    x, dy, scale, shift, a, b, c = _bn_inputs(cuda, *BN_CASES[name], dtype)
+    n0 = fb.launch_counts()
+    mean, var = fb.bn_moments(x)
+    y = fb.bn_apply(x, scale, shift, relu)
+    sdyx, sdy = fb.bn_bwd_reduce(x, dy, scale, shift, relu)
+    dx = fb.bn_bwd_dx(x, dy, scale, shift, a, b, c, relu)
+    torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in fb.launch_counts().items()} == {
+        "bn_moments": 1, "bn_apply": 1, "bn_bwd_reduce": 1, "bn_bwd_dx": 1}
+    want_m, want_v = fb.moments_plain(x)
+    torch.testing.assert_close(mean, want_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(var, want_v, rtol=1e-5, atol=1e-5)
+    want_dyx, want_dy = fb.bwd_reduce_plain(x, dy, scale, shift, relu)
+    torch.testing.assert_close(sdyx, want_dyx, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(sdy, want_dy, rtol=1e-5, atol=1e-4)
+    assert y.dtype == dtype and dx.dtype == dtype
+    assert torch.equal(y, fb.apply_plain(x, scale, shift, relu))
+    assert torch.equal(dx, fb.bwd_dx_plain(x, dy, scale, shift, a, b, c,
+                                           relu))
+
+
+def test_fused_bn_moments_large_offset_stay_finite(cuda):
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy((rng.randn(256, 128) * 0.01 + 3000.0)
+                         .astype(np.float32)).to(cuda)
+    y, _, var = fb.fused_bn_act(x, torch.ones(128, device=cuda),
+                                torch.zeros(128, device=cuda), 1e-5, True)
+    assert bool(torch.isfinite(y).all()) and bool((var >= 0).all())
+
+
+def _conv_inputs(dev, N, H, W, Cin, Cout, k, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(N, H, W, Cin).astype(np.float32))
+    w = torch.from_numpy((rng.randn(Cout, Cin, k, k)
+                          / np.sqrt(Cin * k * k)).astype(np.float32))
+    return x.to(dev, dtype), w.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(CONV_CASES))
+def test_conv_stats_kernel_matches_plain_version(cuda, name, dtype):
+    from paddle_tpu_torch.ops.kernels import fused_conv as fc
+    torch.backends.cudnn.allow_tf32 = False
+    N, H, W, Cin, Cout, k, s, p = CONV_CASES[name]
+    x, w = _conv_inputs(cuda, N, H, W, Cin, Cout, k, dtype)
+    n0 = fc.conv_stats.launches
+    y, mean, var = fc.conv_stats(x, w, s, p)
+    want, want_m, want_v = fc.conv_stats_plain(x, w, s, p)
+    torch.cuda.synchronize()
+    assert fc.conv_stats.launches - n0 == 1
+    assert y.shape == want.shape and y.dtype == dtype
+    scale = want.float().abs().max().item()
+    atol = 1e-4 * max(1.0, scale) if dtype == torch.float32 \
+        else scale * 2.0 ** -7
+    torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(mean, want_m, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(var, want_v, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_ops_autograd_on_cuda_match_the_cpu(cuda):
+    """fused_bn_act and fused_conv_bn_act on the card (every kernel) give
+    the values and gradients the plain versions give on the CPU.  Without
+    the ReLU: its gate is discontinuous, and an input within rounding of
+    0 may be gated differently by the card's and the CPU's sums (the
+    kernel tests above hold the gated passes bit-exact on one device)."""
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    from paddle_tpu_torch.ops.kernels import fused_conv as fc
+    torch.backends.cudnn.allow_tf32 = False
+    x, w = _conv_inputs("cpu", 2, 8, 8, 16, 32, 3, torch.float32)
+    rng = np.random.RandomState(3)
+    g = torch.from_numpy(rng.rand(32).astype(np.float32) + 0.5)
+    b = torch.from_numpy(rng.randn(32).astype(np.float32) * 0.1)
+
+    def run(dev, fn):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, w, g, b)]
+        out, mean, var = fn(*leaves)
+        cot = torch.from_numpy(np.random.RandomState(4).randn(
+            *out.shape).astype(np.float32)).to(dev)
+        ((out * cot).sum() + (mean * mean).sum() + var.sum()).backward()
+        return [None if t is None else t.detach().cpu()
+                for t in [out] + [v.grad for v in leaves]]
+
+    conv = lambda x_, w_, g_, b_: fc.fused_conv_bn_act(x_, w_, g_, b_, 1, 1,
+                                                       1e-5, False)
+    bn = lambda x_, w_, g_, b_: fb.fused_bn_act(x_.reshape(-1, 16),
+                                                w_[:16, 0, 0, 0] + 1.0,
+                                                b_[:16], 1e-5, False)
+    for fn in (conv, bn):
+        for got, want in zip(run(cuda, fn), run("cpu", fn)):
+            if got is None:
+                assert want is None
+                continue
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    from paddle_tpu_torch.ops.kernels import fused_conv as fc
+    x = torch.zeros(16, 8, device=cuda)
+    with pytest.raises(TypeError):
+        fb.bn_moments(x.half())
+    with pytest.raises(ValueError):
+        fb.bn_apply(x, torch.ones(4, device=cuda), torch.ones(4, device=cuda),
+                    True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fb.fused_bn_act(x[:13], torch.ones(8, device=cuda),
+                        torch.zeros(8, device=cuda))
+    xc = torch.zeros(2, 8, 8, 4, device=cuda)
+    with pytest.raises(ValueError):
+        fc.conv_stats(xc, torch.zeros(8, 4, 7, 7, device=cuda), 2, 3)
+    with pytest.raises(ValueError):
+        fc.conv_stats(xc, torch.zeros(8, 4, 3, 3, device=cuda), 3, 1)
+    with pytest.raises(TypeError):
+        fc.conv_stats(xc.half(), torch.zeros(8, 4, 3, 3, device=cuda).half())

@@ -1,7 +1,9 @@
 """Training of the PyTorch port against the JAX package, on the CPU in
 f32: the optimizer rules, the LR schedules, the GradScaler state machine
-and a 5-step TrainStep trajectory of a tiny BERT; then the port's own
-TrainStep contracts (sentinel, seeding, options not ported yet).
+and a 5-step TrainStep trajectory of a tiny BERT; Momentum and a 3-step
+TrainStep(loss_fn=CrossEntropyLoss()) trajectory of a small conv net with
+batch norm; then the port's own TrainStep contracts (sentinel, seeding,
+options not ported yet).
 
 Tolerances: one optimizer update atol 1e-6 on parameters of |p| < 4 and
 rtol 1e-5 on the moments (the same f32 formula; the port's foreach ops
@@ -25,6 +27,7 @@ from paddle_tpu.parallel import TrainStep as JaxTrainStep
 from paddle_tpu.parallel.mesh import make_mesh
 from torch_port_util import (bert_batch, bert_pair, jax_params,
                              linear_weight_names, no_dropout)
+from paddle_tpu_torch.framework.bridge import load_jax_state
 from paddle_tpu_torch.amp import GradScaler
 from paddle_tpu_torch.framework.enforce import UnimplementedError
 from paddle_tpu_torch.optimizer import Adam, AdamW
@@ -227,3 +230,92 @@ def test_options_of_later_slices_raise(option):
     with pytest.raises(UnimplementedError, match="later slice"):
         TrainStep(net, Adam(), device="cpu", **option)
 
+
+
+@pytest.mark.parametrize("nesterov,wd", [(False, None), (True, None),
+                                         (False, 0.01), (True, 0.01)])
+def test_momentum_update_matches_jax_rule(nesterov, wd):
+    """Momentum against JAX's ``_momentum_rule`` (through its
+    functional_apply, which adds the coupled L2 term): 3 updates."""
+    from paddle_tpu.optimizer.optimizer import Momentum as JaxMomentum
+    from paddle_tpu_torch.optimizer import Momentum
+    rng = np.random.RandomState(41)
+    shapes = {"conv.weight": (4, 3, 3, 3), "bn.bias": (4,), "fc.weight": (4, 5)}
+    params = {n: rng.randn(*s).astype(np.float32) for n, s in shapes.items()}
+    grads = [{n: rng.randn(*s).astype(np.float32) for n, s in shapes.items()}
+             for _ in range(3)]
+    hp = dict(learning_rate=0.1, momentum=0.9, use_nesterov=nesterov,
+              weight_decay=wd)
+    jopt = JaxMomentum(**hp)
+    tparams = {n: torch.from_numpy(v.copy()).requires_grad_()
+               for n, v in params.items()}
+    topt = Momentum(**hp, parameters=list(tparams.items()))
+    jp = {n: jnp.asarray(v) for n, v in params.items()}
+    jstate = jopt.functional_state(jp)
+    for t, g in enumerate(grads, start=1):
+        jp, jstate = jopt.functional_apply(
+            jp, {n: jnp.asarray(v) for n, v in g.items()}, jstate, t)
+        for n, p in tparams.items():
+            p.grad = torch.from_numpy(g[n])
+        topt.step()
+    sd = topt.state_dict()
+    for n, p in tparams.items():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[n]),
+                                   atol=1e-6, rtol=0, err_msg=n)
+        np.testing.assert_allclose(sd[f"{n}_velocity"].numpy(),
+                                   np.asarray(jstate["velocity"][n]),
+                                   rtol=1e-6, atol=1e-6, err_msg=n)
+
+
+def _conv_nets():
+    """The same small NHWC conv net (conv, BN, ReLU, pooling, classifier)
+    in both packages, with the JAX weights carried across."""
+    import paddle_tpu as paddle
+    from paddle_tpu_torch import nn as pnn
+    paddle.seed(7)
+    jn = paddle.nn
+    jm = jn.Sequential(
+        jn.Conv2D(3, 8, 3, padding=1, bias_attr=False, data_format="NHWC"),
+        jn.BatchNorm2D(8, data_format="NHWC"), jn.ReLU(),
+        jn.AdaptiveAvgPool2D(1, data_format="NHWC"), jn.Flatten(),
+        jn.Linear(8, 10))
+    pm = torch.nn.Sequential(
+        pnn.Conv2D(3, 8, 3, padding=1, bias_attr=False, data_format="NHWC",
+                   device="cpu"),
+        pnn.BatchNorm2D(8, data_format="NHWC", device="cpu"), pnn.ReLU(),
+        pnn.AdaptiveAvgPool2D(1, data_format="NHWC"), torch.nn.Flatten(),
+        torch.nn.Linear(8, 10))
+    load_jax_state(pm, jax_params(jm))
+    return jm, pm
+
+
+def test_momentum_train_step_with_loss_fn_matches_jax():
+    """TrainStep(layer, Momentum, loss_fn=CrossEntropyLoss()): the first
+    loss agrees to 1e-5 (one f32 forward); the next two, after Momentum
+    updates and BN running-stat updates, to 1e-4, and the loss descends;
+    the running statistics agree after 3 steps to 1e-5."""
+    import paddle_tpu as paddle
+    from paddle_tpu.optimizer.optimizer import Momentum as JaxMomentum
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    jm, pm = _conv_nets()
+    rng = np.random.RandomState(8)
+    x = rng.randn(4, 8, 8, 3).astype(np.float32)
+    y = rng.randint(0, 10, (4,)).astype(np.int64)
+    jstep = JaxTrainStep(
+        jm, JaxMomentum(learning_rate=0.1, momentum=0.9,
+                        parameters=jm.parameters()),
+        loss_fn=paddle.nn.CrossEntropyLoss(),
+        mesh=make_mesh({"dp": 1}, devices=jax.devices()[:1]))
+    tstep = TrainStep(pm, Momentum(learning_rate=0.1, momentum=0.9),
+                      loss_fn=CrossEntropyLoss(), device="cpu")
+    want = [float(jstep((jnp.asarray(x),), jnp.asarray(y)).numpy())
+            for _ in range(3)]
+    got = [float(tstep((x,), y)) for _ in range(3)]
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert got[-1] < got[0]
+    jstep.sync_to_layer()
+    jbuf = jax_params(jm)
+    for n, b in pm.named_buffers():
+        np.testing.assert_allclose(b.numpy(), jbuf[n], atol=1e-5, err_msg=n)

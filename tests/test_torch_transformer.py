@@ -144,3 +144,25 @@ def test_decode_step_window_alone_equals_its_mask(kv_dtype):
     got = cached_attention(q, k, v, window=window, **scales)
     want = cached_attention(q, k, v, attn_mask=mask, **scales)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("lead", [(1, 1), (3, 1), (8, 1), (1, 32), (8, 32),
+                                  (5, 40)])
+def test_batch_invariant_linear_rows_do_not_depend_on_their_batch(lead):
+    """Each output row of batch_invariant_linear equals, bit for bit, the
+    row computed alone, whatever the batch and sequence shape around it
+    (the serving path's GEMMs); and it is the same function as F.linear
+    up to f32 summation order."""
+    from paddle_tpu_torch.nn.functional import batch_invariant_linear
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(rng.randn(48, 64).astype(np.float32))
+    b = torch.from_numpy(rng.randn(48).astype(np.float32))
+    x = torch.from_numpy(rng.randn(*lead, 64).astype(np.float32))
+    out = batch_invariant_linear(x, w, b)
+    assert out.shape == (*lead, 48)
+    flat, rows = out.reshape(-1, 48), x.reshape(-1, 64)
+    for i in {0, rows.shape[0] // 2, rows.shape[0] - 1}:
+        alone = batch_invariant_linear(rows[i:i + 1], w, b)
+        assert torch.equal(flat[i:i + 1], alone), i
+    torch.testing.assert_close(out, torch.nn.functional.linear(x, w, b),
+                               rtol=1e-5, atol=1e-5)

@@ -32,8 +32,10 @@ KERNEL_TINY = dict(vocab_size=128, hidden_size=128, layers=2, heads=2,
 
 
 def jax_params(layer):
-    """``layer_state(layer)[0]`` as numpy arrays (the bridge's input)."""
-    return {k: np.asarray(v) for k, v in layer_state(layer)[0].items()}
+    """``layer_state(layer)``'s parameters and buffers (BatchNorm's running
+    statistics) as one dict of numpy arrays (the bridge's input)."""
+    params, buffers = layer_state(layer)[:2]
+    return {k: np.asarray(v) for k, v in {**params, **buffers}.items()}
 
 
 def gpt_pair(seed, **tiny):

@@ -9,7 +9,9 @@ Phases, each printing its own line; any failure raises and the script
 exits non-zero without printing a result:
 
   1. env      the card (torch and nvidia-smi), torch and CUDA versions;
-  2. build    nvcc builds every kernel source of the port;
+  2. build    nvcc builds every kernel source of the port; the fused
+              conv library's SASS (cuobjdump) holds HGMMA, the tensor
+              cores' wgmma;
   3. kernels  each kernel against its plain PyTorch version on the card,
               then its time beside the plain version, a library call and
               the card's bound;
@@ -52,7 +54,10 @@ exits non-zero without printing a result:
               plain versions at every distinct ResNet-50 conv+BN site
               (batch 2, 224 px), at M = 49, a 5x5/s2 site and odd widths,
               in f32 and bf16, relu on and off; the same checks in bf16
-              at every distinct site at the main path's batch 256; then
+              at every distinct site at the main path's batch 256, where
+              two B7 launches on one input must give the same bits and
+              B7 is timed beside its bound and cuDNN's conv (per site and
+              weighted by the 53 sites); then
               timed at batch 256 (stem, stage-1 3x3, the [802816, 256]
               epilogue), each on tensors checked first, beside the bound,
               the plain versions, cuDNN's conv and ATen's BN;
@@ -75,6 +80,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -156,15 +162,31 @@ def phase_env(torch):
 
 # -- phase 2 -----------------------------------------------------------------
 
+def _sass_counts(path):
+    """The tensor-core instructions in a built library's SASS (cuobjdump
+    -sass): HGMMA (wgmma) and HMMA (mma.sync)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {path}: {out.stderr}")
+    lines = out.stdout.splitlines()
+    return {op: sum(f" {op}." in ln or f" {op} " in ln for ln in lines)
+            for op in ("HGMMA", "HMMA")}
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     report = _build.build()
     for name in report:
         _build.library(name)
+    # B7's bf16 kernel runs on the tensor cores: its library holds wgmma
+    sass = _sass_counts(_build._lib_path("fused_conv"))
+    check(sass["HGMMA"] > 0, f"fused_conv: no HGMMA in its SASS ({sass})")
     log("build", seconds=round(time.perf_counter() - t0, 3),
         sources={n: {"seconds": round(r["seconds"], 3),
-                     "cached": r["cached"]} for n, r in report.items()})
+                     "cached": r["cached"]} for n, r in report.items()},
+        fused_conv_sass=sass)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1431,15 +1453,46 @@ def phase_fused_kernels(torch, seed):
         apply_and_dx="bit-equal to the plain versions")
 
     # the same checks at the main path's own batch (bf16, every distinct
-    # site): the reductions' depth and B7's row tiling are the step's
+    # site): the reductions' depth and B7's row tiling are the step's;
+    # then two launches on the same input must give the same bits, and
+    # B7 is timed at the site beside its bound and cuDNN's conv
     n = FUSED_TIME_BATCH
     bf = torch.bfloat16
     worst_main = {k: 0.0 for k in worst}
-    main_sites = _distinct(_resnet50_sites(n))
+    all_main = _resnet50_sites(n)
+    main_sites = _distinct(all_main)
+    per_site = []
     for site in main_sites:
-        _conv_compare(torch, fc, fb, site, bf, g, worst_main)
+        name, _, h, w, cin, cout, k, s, p = site
+        x = torch.randn(n, h, w, cin, generator=g, device="cuda").to(bf)
+        wt = (torch.randn(cout, cin, k, k, generator=g, device="cuda")
+              / (cin * k * k) ** 0.5).to(bf)
+        _conv_compare(torch, fc, fb, site, bf, g, worst_main, (x, wt))
+        first, again = fc.conv_stats(x, wt, s, p), fc.conv_stats(x, wt, s, p)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{name} batch {n}: two B7 launches on one input differ")
+        del first, again
+        xc = x.permute(0, 3, 1, 2)           # channels-last NCHW view
+        bound, by, _, ops = _conv_bound(*site[1:], 2)
+        ms = _graph_ms(torch, lambda i: fc.conv_stats(x, wt, s, p), 2)
+        per_site.append({
+            "site": name, "shape": list(site[1:]),
+            "sites": sum(t[1:] == site[1:] for t in all_main),
+            "ms": ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": _graph_ms(
+                torch, lambda i: F.conv2d(xc, wt, None, s, p), 2),
+            "tflops": ops / ms / 1e9})
+        del x, wt, xc
+    weighted = {key: sum(r[key] * r["sites"] for r in per_site)
+                for key in ("ms", "bound_ms", "library_ms")}
+    check(sum(r["sites"] for r in per_site) == RESNET_SITES,
+          "per-site multiplicities do not add up to 53")
     log("fused_kernels", check=f"batch {n}", sites=len(main_sites),
-        dtypes="bfloat16", relu="on,off", max_abs_err=worst_main, ok=True)
+        dtypes="bfloat16", relu="on,off", max_abs_err=worst_main,
+        repeat="bit-equal", ok=True)
+    log("fused_kernels", timing=f"B7 bf16 at each distinct site, batch {n}"
+        " (cuDNN: F.conv2d on the channels-last view, no statistics)",
+        per_site=per_site, weighted_by_sites_ms=weighted)
 
     # timing at the main path's batch-256 shapes, bf16, each kernel first
     # checked on the tensors it is timed on
@@ -1476,6 +1529,7 @@ def phase_fused_kernels(torch, seed):
         f"relu at the stem's [{n * 112 * 112}, 64] (stem_epilogue_*) and "
         f"stage 1's [{n * 56 * 56}, 256] epilogues", ms=t,
         max_abs_err_main_batch=worst_main)
+    t["b7_sites_weighted"] = weighted
     return {k: max(worst[k], worst_main[k]) for k in worst}, t
 
 
@@ -1640,14 +1694,17 @@ def phase_resnet_profile(torch, step, batch):
         out["device_busy_ms"] = "not measured (no CUDA events)"
     else:
         # the kernels of csrc/fused_conv.cu and csrc/fused_bn.cu by their
-        # demangled names
-        names = {"conv_stats": "(anonymous namespace)::conv_stats_kernel<",
+        # demangled names (conv_stats: the bf16 tensor-core kernel and
+        # the f32 one)
+        names = {"conv_stats": "::conv_stats_",
                  "bn_apply": "(anonymous namespace)::apply_kernel<",
                  "bn_bwd_reduce": "(anonymous namespace)::bwd_reduce_kernel<",
                  "bn_bwd_dx": "(anonymous namespace)::bwd_dx_kernel<",
                  "reduce_partials": "bn::reduce_partials_kernel("}
         fused = {k: sum(e.self_device_time_total for e in kernels
                         if v in e.key) / 1e3 for k, v in names.items()}
+        check(fused["conv_stats"] > 0, "resnet_profile: no B7 kernel time "
+              f"among the traced kernels {[e.key[:60] for e in kernels]}")
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
         out.update(
             device_busy_ms=round(busy, 3),

@@ -6,8 +6,9 @@ ResNet site, NHWC, Paddle OIHW weight, bias-free:
 * forward: :func:`conv_stats` (kernel B7, ``csrc/fused_conv.cu``): the
   conv with f32 accumulation, its output stored once in x's dtype, and
   the per-channel mean and var taken from the f32 accumulator before the
-  store; then B5's apply (``fused_bn.bn_apply``) normalizes, shifts and
-  applies the ReLU in one pass;
+  store (bf16 on the tensor cores, over the weight :func:`weight_kmajor`
+  lays out; f32 on FMAs); then B5's apply (``fused_bn.bn_apply``)
+  normalizes, shifts and applies the ReLU in one pass;
 * backward: B6 on the saved conv output (reduce, coefficients, dx: the
   conv output's cotangent, the ReLU gate recomputed), then the conv's own
   dX and dW through the library convolution backward, as the JAX package
@@ -94,6 +95,22 @@ def conv_stats_plain(x, w, stride, padding):
 
 # -- kernel wrapper -----------------------------------------------------------
 
+K_STEP = 64       # the bf16 kernel's K elements per stage
+CIN_ALIGN = 8     # its channel slot of a tap: Cin rounded up to this
+
+
+def weight_kmajor(w):
+    """The bf16 kernel's weight operand: OIHW ``w`` as [Cout, kpad],
+    K-major in the kernel's K order, k = (u·kw + v)·cpad + c, with the
+    channel slot cpad = Cin rounded up to CIN_ALIGN and kpad = kh·kw·cpad
+    rounded up to K_STEP; zero in every padded place."""
+    cout, cin, kh, kw = w.shape
+    cpad = -(-cin // CIN_ALIGN) * CIN_ALIGN
+    ktot = kh * kw * cpad
+    wk = F.pad(w.permute(0, 2, 3, 1), (0, cpad - cin)).reshape(cout, ktot)
+    return F.pad(wk, (0, -(-ktot // K_STEP) * K_STEP - ktot)).contiguous()
+
+
 def _check(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
@@ -127,7 +144,10 @@ def conv_stats(x, w, stride=1, padding=0):
     if ho <= 0 or wo <= 0:
         raise ValueError(f"conv_stats: empty output {ho}x{wo}")
     x = x.contiguous()
-    wk = w.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # [kh, kw, Cin, O]
+    if x.dtype == torch.bfloat16:                 # tensor cores: [O, kpad]
+        wk = weight_kmajor(w.to(x.dtype))
+    else:                                         # f32 FMAs: [kh, kw, Cin, O]
+        wk = w.to(x.dtype).permute(2, 3, 1, 0).contiguous()
     lib = _build.library("fused_conv")
     m = n * ho * wo
     work = torch.empty((2, lib.conv_tiles(m), cout), dtype=torch.float32,

@@ -93,6 +93,44 @@ def test_conv_stats_plain_version_matches_the_jax_kernel(k, stride, pad):
                                atol=1e-5)
 
 
+def _im2col_k_order(x, kh, kw, stride, pad, cpad, kpad):
+    """[M, kpad]: each output pixel's input taps in the bf16 kernel's K
+    order, k = (u·kw + v)·cpad + c, zero in the padded places."""
+    n, h, w, cin = x.shape
+    ho, wo = tfc.out_hw(h, w, kh, kw, stride, pad)
+    xp = torch.nn.functional.pad(x, (0, cpad - cin, pad, pad, pad, pad))
+    taps = [xp[:, u:u + stride * (ho - 1) + 1:stride,
+               v:v + stride * (wo - 1) + 1:stride, :]
+            for u in range(kh) for v in range(kw)]
+    a = torch.stack(taps, 3).reshape(n * ho * wo, kh * kw * cpad)
+    return torch.nn.functional.pad(a, (0, kpad - a.shape[1]))
+
+
+@pytest.mark.parametrize("n,h,cin,cout,k,stride,pad", [
+    (2, 11, 12, 64, 4, 1, 0),    # the s2d stem: four taps in a K step
+    (1, 7, 20, 36, 3, 1, 1),     # Cin and Cout off the vector widths
+    (2, 9, 64, 24, 3, 2, 1),     # stride 2, one tap a K step
+    (2, 6, 3, 8, 5, 1, 2),       # Cin 3, 25 taps
+    (1, 6, 136, 16, 1, 2, 0),    # a tap longer than one K step
+])
+def test_bf16_weight_layout_and_k_order_rebuild_the_conv(n, h, cin, cout, k,
+                                                         stride, pad):
+    """The bf16 kernel's operands as the wrapper lays them out (the weight
+    by ``weight_kmajor``, the input gathered in the kernel's K order): a
+    plain product of the two is the conv of ``conv_stats_plain``."""
+    x, w, _, _ = _inputs(n=n, h=h, cin=cin, cout=cout, k=k, seed=13)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    wk = tfc.weight_kmajor(w)
+    cpad = -(-cin // tfc.CIN_ALIGN) * tfc.CIN_ALIGN
+    assert wk.shape == (cout, -(-k * k * cpad // tfc.K_STEP) * tfc.K_STEP)
+    assert wk.is_contiguous()
+    a = _im2col_k_order(x, k, k, stride, pad, cpad, wk.shape[1])
+    want = tfc.conv_stats_plain(x, w, stride, pad)[0]
+    got = (a.double() @ wk.double().T).reshape(want.shape)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_stem_s2d_reorg_equals_jax_exactly():
     rng = np.random.RandomState(6)
     x = rng.randn(2, 16, 16, 3).astype(np.float32)

@@ -275,6 +275,15 @@ CONV_CASES = {   # N, H, W, Cin, Cout, k, stride, pad
     "s2d_stem": (2, 11, 11, 12, 64, 4, 1, 0),
     "odd_widths": (1, 7, 5, 20, 36, 3, 1, 1),   # Cin, Cout off the vectors
     "cin4_cout6": (2, 5, 5, 4, 6, 3, 1, 1),
+    "cin3": (2, 9, 9, 3, 10, 3, 1, 1),          # element loads
+    # the bf16 tensor-core tile's edges: a K loop longer than the ring,
+    # a full 128-wide column tile and a ragged one, stride 2 at Cin 64,
+    # the real s2d stem, M = 49 (no multiple of the 128-row tile)
+    "k_past_ring": (2, 8, 8, 128, 128, 3, 1, 1),
+    "cout192": (2, 8, 8, 64, 192, 1, 1, 0),
+    "3x3_s2_cin64": (2, 16, 16, 64, 64, 3, 2, 1),
+    "stem_115": (2, 115, 115, 12, 64, 4, 1, 0),
+    "m49": (1, 7, 7, 512, 512, 1, 1, 0),
 }
 
 
@@ -348,6 +357,18 @@ def test_conv_stats_kernel_matches_plain_version(cuda, name, dtype):
     torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=atol)
     torch.testing.assert_close(mean, want_m, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(var, want_v, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["stem_115", "cout192", "m49"])
+def test_conv_stats_kernel_repeats_bit_for_bit(cuda, name, dtype):
+    """Fixed-order sums, no atomics: two launches, the same bits."""
+    from paddle_tpu_torch.ops.kernels import fused_conv as fc
+    N, H, W, Cin, Cout, k, s, p = CONV_CASES[name]
+    x, w = _conv_inputs(cuda, N, H, W, Cin, Cout, k, dtype, seed=5)
+    first, again = fc.conv_stats(x, w, s, p), fc.conv_stats(x, w, s, p)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_fused_ops_autograd_on_cuda_match_the_cpu(cuda):

@@ -11,7 +11,9 @@ exits non-zero without printing a result:
   1. env      the card (torch and nvidia-smi), torch and CUDA versions;
   2. build    nvcc builds every kernel source of the port; the fused
               conv library's SASS (cuobjdump) holds HGMMA, the tensor
-              cores' wgmma;
+              cores' wgmma, and the flash-attention library's HMMA
+              (mma.sync, its bf16 kernels), with no register spills
+              (nvcc -Xptxas -v);
   3. kernels  each kernel against its plain PyTorch version on the card,
               then its time beside the plain version, a library call and
               the card's bound;
@@ -38,8 +40,9 @@ exits non-zero without printing a result:
               128 x 384, causal, and the three bias shapes; then at
               BERT-base (B=64, N=12, S=128, H=64) on the strided views
               the model passes, with and without the padding bias:
-              checked in f32 and bf16, and timed in bf16 beside the
-              bound, the plain versions and SDPA;
+              checked in f32 and bf16 (in bf16 also twice: the same
+              bits), and timed in bf16 beside the bound, the plain
+              versions and SDPA;
   8. train    BERT-base pretraining (random weights from --seed, f32
               masters, bf16 compute, AdamW, dropout 0.1) at batch 64 x
               seq 128 with a ragged attention mask: 3 + 20 steps, seq/s,
@@ -47,7 +50,9 @@ exits non-zero without printing a result:
               flash-attention kernel = 12 layers x steps; one seed gives
               one first loss, another seed another; then train_parity
               (f32, dropout off, batch 8: 5 steps with the kernels on
-              and off) and train_profile (one step under torch.profiler);
+              and off) and train_profile (one step under torch.profiler:
+              the bf16 step runs the tensor-core kernels, and their share
+              of the device-busy time);
   9. batch_probe  one short prompt decoded alone and in an 8-row batch,
               module by module: no row may diverge;
  10. fused_kernels  B5 stats/apply, B6 reduce/dx and B7 against their
@@ -80,6 +85,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -174,19 +180,38 @@ def _sass_counts(path):
             for op in ("HGMMA", "HMMA")}
 
 
+def _spill_bytes(log):
+    """The largest spill-store count of any kernel in an nvcc -Xptxas -v
+    log (0 for a library loaded from an earlier build)."""
+    return max((int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                           log)), default=0)
+
+
 def phase_build():
     from paddle_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     report = _build.build()
     for name in report:
         _build.library(name)
-    # B7's bf16 kernel runs on the tensor cores: its library holds wgmma
-    sass = _sass_counts(_build._lib_path("fused_conv"))
-    check(sass["HGMMA"] > 0, f"fused_conv: no HGMMA in its SASS ({sass})")
+    # B7's bf16 kernel runs on the tensor cores: its library holds wgmma;
+    # B1's and B2's bf16 kernels too, through mma.sync (HMMA)
+    sass = {n: _sass_counts(_build._lib_path(n))
+            for n in ("fused_conv", "flash_attention")}
+    check(sass["fused_conv"]["HGMMA"] > 0,
+          f"fused_conv: no HGMMA in its SASS ({sass['fused_conv']})")
+    check(sass["flash_attention"]["HMMA"] + sass["flash_attention"]["HGMMA"]
+          > 0, "flash_attention: no tensor-core instruction in its SASS "
+          f"({sass['flash_attention']})")
+    # their accumulators and scores stay in registers at every head_dim
+    spills = {n: _spill_bytes(r["log"]) for n, r in report.items()}
+    check(spills["flash_attention"] == 0,
+          f"flash_attention spills registers: {spills}")
     log("build", seconds=round(time.perf_counter() - t0, 3),
         sources={n: {"seconds": round(r["seconds"], 3),
                      "cached": r["cached"]} for n, r in report.items()},
-        fused_conv_sass=sass)
+        fused_conv_sass=sass["fused_conv"],
+        flash_attention_sass=sass["flash_attention"],
+        spill_store_bytes=spills)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -814,6 +839,22 @@ def _fa_compare(torch, fa, inputs, causal, where, worst):
               f"{where}: bf16 forward vs f32 plain {err}")
 
 
+def _fa_repeat(torch, fa, inputs, where):
+    """The three kernels twice on one input must give the same bits: one
+    writer per output, fixed-order sums, no atomics."""
+    q, k, v, do, b = inputs
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_fwd(q, k, v, b)
+        dd = fa.flash_dd(o, do)
+        runs.append((o, lse, fa.flash_bwd_dq(q, k, v, b, lse, do, dd),
+                     *fa.flash_bwd_dkv(q, k, v, b, lse, do, dd)))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        check(torch.equal(x, y), f"{where}: {name} differs between two "
+              "launches on one input")
+
+
 def phase_fa_kernels(torch, seed):
     """B1, B2-dQ and B2-dK/dV against their plain versions over
     FA_CHECKS in f32 and bf16, then at the BERT-base training shape in
@@ -848,9 +889,11 @@ def phase_fa_kernels(torch, seed):
                 f"{where}: the inputs are not the model's strided views "
                 "or the wrapper would copy them")
             _fa_compare(torch, fa, inputs, False, where, worst)
+            if dt == torch.bfloat16:
+                _fa_repeat(torch, fa, inputs, f"{where} bfloat16")
             del inputs
         log("fa_kernels", check=where, dtypes="float32,bfloat16",
-            uncopied_views=True, ok=True)
+            uncopied_views=True, bf16_repeats_bit_for_bit=True, ok=True)
         sets = []
         for _ in range(FA_ROTATE):
             q, k, v, do, b = _fa_inputs(torch, g, B, N, S, S, H, bias,
@@ -1108,10 +1151,18 @@ def phase_train_profile(torch, step, batch):
         out["device_busy_ms"] = "not measured (no CUDA events)"
     else:
         # the kernels of csrc/flash_attention.cu, by their demangled
-        # names (flash_decode.cu's are decode_*_kernel)
-        fa_ms = {k: sum(e.self_device_time_total for e in kernels
-                        if f"(anonymous namespace)::{k}<" in e.key) / 1e3
-                 for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")}
+        # names: bf16 runs the tensor-core ones (tc::fwd_tc_kernel...),
+        # f32 the FMA ones (fwd_kernel...; flash_decode.cu's are
+        # decode_*_kernel)
+        fa_ev = {k: [e for e in kernels if f"::{k}_kernel<" in e.key
+                     or f"::tc::{k}_tc_kernel<" in e.key]
+                 for k in ("fwd", "dq", "dkv")}
+        check(all(ev and all("_tc_kernel<" in e.key for e in ev)
+                  for ev in fa_ev.values()),
+              "the bf16 step did not run the tensor-core kernels: "
+              f"{ {k: [e.key for e in ev] for k, ev in fa_ev.items()} }")
+        fa_ms = {k: sum(e.self_device_time_total for e in ev) / 1e3
+                 for k, ev in fa_ev.items()}
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
         out.update(
             device_busy_ms=round(busy, 4),
@@ -1120,6 +1171,8 @@ def phase_train_profile(torch, step, batch):
             device_idle_share=round(1 - busy / step_ms, 4),
             kernel_launches=sum(e.count for e in kernels),
             flash_attention_ms=fa_ms,
+            flash_attention_kernels=sorted(
+                {e.key[:90] for ev in fa_ev.values() for e in ev}),
             flash_attention_share=round(sum(fa_ms.values()) / busy, 4),
             top_kernels=[{"name": e.key[:90], "calls": e.count,
                           "ms": round(e.self_device_time_total / 1e3, 4)}

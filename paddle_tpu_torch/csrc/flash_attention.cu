@@ -5,30 +5,61 @@
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   * `_fwd_kernel` (:67), called by `_flash_fwd_call` (pallas_call :158):
-//     fwd_kernel below;
+//     tc::fwd_tc_kernel (bf16) and fwd_kernel (f32) below;
 //   * `_dq_kernel` (:192) and `_dkv_kernel` (:232), called by
-//     `_flash_bwd_call` (pallas_call :326 and :338): dq_kernel and
-//     dkv_kernel below.  dd = rowsum(dO * O), plain XLA there (:285), is
-//     one torch reduction in the wrapper.
+//     `_flash_bwd_call` (pallas_call :326 and :338): tc::dq_tc_kernel and
+//     tc::dkv_tc_kernel (bf16), dq_kernel and dkv_kernel (f32) below.
+//     dd = rowsum(dO * O), plain XLA there (:285), is one torch reduction
+//     in the wrapper.
 //
 // What bounds it on an H100 (SXM published peaks, 700 W power limit).
 // At BERT-base (B*N = 768, S = 128, H = 64, bf16) the forward reads q,
 // k, v and writes o (12.6 MB each) and lse:
 // ~50.7 MB, 15.1 us at 3.35 TB/s, against 3.2 GFLOP, 3.3 us on the bf16
 // tensor cores (989 TF/s): bytes bound it.  The backward moves ~89 MB
-// (26.5 us) against 11.3 GFLOP (11.4 us).  This first version does its
-// products with f32 FMAs out of shared memory, not on the tensor cores:
-// at 67 TF/s of f32 the forward's operations alone take 48 us and the
-// backward's 169 us, so it is bound by operations, some 3x and 6x above
-// the bytes.  wgmma/mma.sync on bf16 tiles is the later step.
+// (26.5 us) against 11.3 GFLOP (11.4 us).  Two sets of kernels, chosen
+// by dtype (a static dispatch, not a fallback):
 //
-// What the design does about it:
+// bf16, namespace tc: every product on the tensor cores
+// (mma.sync.m16n8k16, bf16 operands, f32 sums), so bytes, not
+// operations, bind them:
+//   * blocks of 4 warps own 64 rows (query rows: forward, dQ; key rows:
+//     dK/dV), each warp 16: one m16 fragment, FA2's layout;
+//   * the other operand's tiles (K, V: forward, dQ; Q, dO, lse, dd:
+//     dK/dV) are double-buffered in shared memory by cp.async, tile t + 1
+//     in flight while tile t computes; rows past Sq or Sk are zero-filled
+//     (src-size 0).  Tiles stay bf16, 16-byte chunks XOR-swizzled by row
+//     so that ldmatrix reads them free of bank conflicts (the transposed
+//     operands, V and K for P V and dS K, dO and Q for P^T dO and dS^T Q,
+//     through ldmatrix.trans);
+//   * the scores are a register fragment: the online softmax reduces a
+//     row over the 4 lanes that hold it (2 shuffles), and p (forward,
+//     dK/dV) or ds, rounded to bf16, are the next product's A operand as
+//     they lie: the m16n8k16 accumulator layout is the A layout.  dK/dV
+//     computes S^T = K Q^T and dP^T = V dO^T, keys as rows, so that P^T
+//     and dS^T are A operands too;
+//   * each tile's P V (dS K, P^T dO, dS^T Q) starts from zero and is added
+//     to the f32 accumulator with f32 FMAs: the tensor cores' own adder
+//     sums at most one tile;
+//   * a bias that is one row for all queries (BERT's padding mask,
+//     strides (b, 0, 0, k)) is staged with each key tile (forward, dQ) or
+//     read once per key row (dK/dV); others are read element by element
+//     in the ragged-edge path.  Tiles with no ragged edge and no causal
+//     cut take a branch-free path (scale, bias);
+//   * outputs leave through shared memory as 16-byte row pieces;
+//   * steps of 32 keys (forward, dQ) or 64/16 query rows (dK/dV), and
+//     column blocks of HO outputs that recompute the same scores, keep the
+//     accumulators in registers unspilled up to H = 256.
+//
+// f32: the first version, f32 FMAs out of shared memory (67 TF/s of f32:
+// the forward's operations alone take 48 us and the backward's 169 us,
+// 3x and 6x above the bytes):
 //   * the TPU grid's sequential axis ("arbitrary", the k-block sweep)
 //     becomes a loop inside the block.  Forward and dQ: one block per
 //     (batch*head, tile of query rows) sweeping the key tiles; dK/dV: one
 //     block per (batch*head, tile of key rows) sweeping the query tiles.
 //     Each output is written by one block, with no atomics, so gradients
-//     are deterministic;
+//     are deterministic (both sets);
 //   * tiles of T = 64 rows (32 for H = 256 in the backward, which holds
 //     four T x H tiles), converted to f32 in shared memory on load, rows
 //     padded by 4 floats so that the strided row reads of a warp hit
@@ -36,21 +67,25 @@
 //     score tile and the matching rows of the T x H accumulators, kept in
 //     registers;
 //   * the (S x S) score matrix never reaches device memory: scores, p and
-//     ds live in registers and one T x T shared tile;
+//     ds live in registers and one T x T shared tile (both sets: the tc
+//     kernels keep them in registers only);
 //   * causal: key tiles with no visible column are skipped (forward, dQ),
 //     and query tiles whose last row sees no column of the key tile
-//     (dK/dV);
+//     (dK/dV), in both sets;
 //   * ragged tails: rows and columns past Sq or Sk are zero-filled on
-//     load and their p set to 0, so any Sq and Sk are taken;
+//     load and their p set to 0, so any Sq and Sk are taken (both sets);
 //   * q, k, v, dO and the outputs are addressed by (batch, head, seq)
 //     strides with the head_dim contiguous, so the heads split out of a
 //     (B, S, N*H) projection are read in place, and outputs written as
-//     (B, S, N, H) merge back to (B, S, N*H) without a copy.
+//     (B, S, N, H) merge back to (B, S, N*H) without a copy (both sets;
+//     the tc kernels need every stride and start 16-byte aligned and
+//     refuse others: the wrapper copies such a view first).
 //
 // Numerics follow the TPU kernels: f32 scores, softmax state and
 // accumulators; the finite -1e30 causal mask; p rounded to V's dtype
 // before PV (forward) and to dO's before dV, ds to K's before dQ and to
-// Q's before dK; the l == 0 guard (:111-113); lse = m + log(l) in f32,
+// Q's before dK (in bf16 exactly where the tensor cores take their
+// operands); the l == 0 guard (:111-113); lse = m + log(l) in f32,
 // one value per row ((B*N, Sq), not replicated over 8 sublanes as Mosaic
 // needed).  The bias gets no gradient.
 //
@@ -101,26 +136,8 @@ __device__ __forceinline__ void load4(const float* p, float* d) {
   d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* d) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  d[0] = a.x; d[1] = a.y; d[2] = b.x; d[3] = b.y;
-}
-
 __device__ __forceinline__ void store4(float* p, const float* s) {
   *reinterpret_cast<float4*>(p) = make_float4(s[0], s[1], s[2], s[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* s) {
-  uint2 u;
-  *reinterpret_cast<__nv_bfloat162*>(&u.x) =
-      __floats2bfloat162_rn(s[0], s[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&u.y) =
-      __floats2bfloat162_rn(s[2], s[3]);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // x rounded to T and back: the kernels' rounding points
@@ -128,10 +145,6 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x);
 template <>
 __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // max / sum over the 16 threads (tx = 0..15) that share a score row
 __device__ __forceinline__ float row_max16(float x) {
@@ -628,6 +641,665 @@ cudaError_t launch_h(const Params& p, int B, int H, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kTcThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // a block's own rows, 16 a warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 or 4 bytes; with ok false nothing is read and the
+// destination is zero-filled (src-size 0)
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// d += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 f32.  Lane
+// (g = lane / 4, c = lane % 4) holds d[0..1] at row g, columns 2c, 2c + 1
+// and d[2..3] at row g + 8; a[0..3] rows (g, g + 8) x columns (2c, 2c + 8)
+// in that order, two bf16 a register; b[0..1] rows 2c and 2c + 8 of
+// column g.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (the kernels' rounding points), lo in the low
+// half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte offset of 16-byte chunk c of row r in a shared tile of rows of H
+// bf16.  The chunk index is XORed with r mod 8, so the 8 rows that one
+// ldmatrix matrix (or one cp.async row) touches at one logical chunk lie
+// in 8 distinct groups of 4 banks.
+template <int H>
+__device__ __forceinline__ uint32_t sw(int r, int c) {
+  return static_cast<uint32_t>(r * (2 * H) + ((c ^ (r & 7)) << 4));
+}
+
+// R rows of H bf16, rows row0.. of a sequence of `nvalid` rows with row
+// stride ss, into a swizzled tile by cp.async; rows past the end are
+// zero-filled
+template <int H, int R>
+__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* base,
+                                          long long ss, int row0,
+                                          int nvalid) {
+  constexpr int C = H / 8;
+  static_assert(R * C % kTcThreads == 0, "whole passes of the block");
+#pragma unroll
+  for (int it = 0; it < R * C / kTcThreads; ++it) {
+    const int i = threadIdx.x + it * kTcThreads;
+    const int r = i / C, c = i % C;
+    const bool ok = row0 + r < nvalid;
+    cp16(tile + sw<H>(r, c), ok ? base + (row0 + r) * ss + 8 * c : base, ok);
+  }
+}
+
+// A operand (rows r0..r0 + 15, k step kk) of a tile
+template <int H>
+__device__ __forceinline__ void lda(uint32_t (&a)[4], uint32_t tile, int r0,
+                                    int kk, int lane) {
+  ldsm4(a, tile + sw<H>(r0 + (lane & 7) + (lane & 8), 2 * kk + (lane >> 4)));
+}
+
+// B operands of the n8 tiles n0/8 and n0/8 + 1 at k step kk, from a tile
+// whose rows are B's columns (K for Q K^T, V for dO V^T, Q and dO for the
+// transposed products): b[0..1] for rows n0.., b[2..3] for n0 + 8..
+template <int H>
+__device__ __forceinline__ void ldb(uint32_t (&b)[4], uint32_t tile, int n0,
+                                    int kk, int lane) {
+  ldsm4(b, tile + sw<H>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                        2 * kk + ((lane >> 3) & 1)));
+}
+
+// B operands of the n8 tiles c and c + 1 (chunks) at the k rows k0..k0 +
+// 15 of a tile whose rows are B's rows (V for P V, K for dS K, dO and Q
+// for P^T dO and dS^T Q), transposed by ldmatrix
+template <int H>
+__device__ __forceinline__ void ldbt(uint32_t (&b)[4], uint32_t tile, int k0,
+                                     int c, int lane) {
+  ldsm4t(b, tile + sw<H>(k0 + (lane & 7) + (lane & 8), c + (lane >> 4)));
+}
+
+// s (16 x 8NT, f32) = rows r0.. of tile a times the first 8NT rows of
+// tile b, transposed, over the depth H
+template <int H, int NT>
+__device__ __forceinline__ void qk(float (&s)[NT][4], uint32_t a_tile,
+                                   int r0, uint32_t b_tile, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    uint32_t a[4];
+    lda<H>(a, a_tile, r0, kk, lane);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      ldb<H>(b, b_tile, 8 * j, kk, lane);
+      mma(s[j], a, b[0], b[1]);
+      mma(s[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The f32 fragment s (16 x 16KS) rounded to bf16 as KS A operands: the
+// m16n8k16 accumulator of n8 tiles 2kk and 2kk + 1 is, element for
+// element, the A operand of k step kk
+template <int NT>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4],
+                                     const float (&s)[NT][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    a[kk][0] = pack(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = pack(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// acc (16 x 8NO, f32) = acc * alpha (per row) + a b, with a the KS A
+// operands in registers and b rows 0..16KS of a tile, at chunks c0...
+// Each tile's product starts from zero and is added with f32 FMAs, so
+// the tensor cores' adder sums at most 16KS terms.
+template <int H, int KS, int NO>
+__device__ __forceinline__ void pv(float (&acc)[NO][4],
+                                   const uint32_t (&a)[KS][4],
+                                   uint32_t b_tile, int c0,
+                                   const float (&alpha)[2], int lane) {
+#pragma unroll
+  for (int j = 0; j < NO; j += 2) {
+    float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t b[4];
+      ldbt<H>(b, b_tile, 16 * kk, c0 + j, lane);
+      mma(o0, a[kk], b[0], b[1]);
+      mma(o1, a[kk], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] = acc[j][e] * alpha[e >> 1] + o0[e];
+      acc[j + 1][e] = acc[j + 1][e] * alpha[e >> 1] + o1[e];
+    }
+  }
+}
+
+// The warp's fragment acc (16 x 8NO) times mul (per row), rounded to
+// bf16, stored to global rows row0.. (those < nvalid) of `out` (row
+// stride os): staged through the warp's own rows r0..r0 + 15 of a tile,
+// which no other warp reads, and written as 16-byte row pieces
+template <int H, int NO>
+__device__ __forceinline__ void store_rows(const float (&acc)[NO][4],
+                                           const float (&mul)[2],
+                                           uint32_t tile, int r0, bf16* out,
+                                           long long os, int row0,
+                                           int nvalid, int lane) {
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      sts32(tile + sw<H>(r0 + g + 8 * i, j) + 4 * c,
+            pack(acc[j][2 * i] * mul[i], acc[j][2 * i + 1] * mul[i]));
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * NO / 32; ++it) {
+    const int x = lane + 32 * it, r = x / NO, ch = x % NO;
+    if (row0 + r < nvalid)
+      *reinterpret_cast<uint4*>(out + (row0 + r) * os + 8 * ch) =
+          lds128(tile + sw<H>(r0 + r, ch));
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// e^x for a difference of logits x <= 0, as 2^(x log2 e) (one MUFU.EX2
+// and its range fix-up): the product rounds relative to x, so where p is
+// not negligible (x > -20) its relative error stays near 1e-6, far
+// below the bf16 step it is rounded to
+__device__ __forceinline__ float exp_(float x) { return exp2f(x * kLog2e); }
+
+// N f32 of a row, src[(i0 + i) * stride] for i < N, into shared memory
+// by cp.async; past `nvalid` zero-filled
+template <int N>
+__device__ __forceinline__ void load_row(uint32_t dst, const float* src,
+                                         long long stride, int i0,
+                                         int nvalid) {
+  static_assert(N <= kTcThreads, "one element a thread");
+  const int i = threadIdx.x;
+  if (i < N) {
+    const bool ok = i0 + i < nvalid;
+    cp4(dst + 4 * i, ok ? src + (i0 + i) * stride : src, ok);
+  }
+}
+
+// x = f(x, i, cc) over a score fragment: i = 0, 1 for its rows g, g + 8,
+// cc its column in the tile.  Each caller's f is branch-free where it
+// can be, so the unrolled loop is straight-line code.
+template <int NT, class F>
+__device__ __forceinline__ void map(float (&s)[NT][4], int c, F f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        s[j][2 * i + e] = f(s[j][2 * i + e], i, 8 * j + 2 * c + e);
+}
+
+// The logits of a (query rows) x (key tile at k0) fragment, in place,
+// as logit() gives them and -inf past Sk.  An interior tile (every
+// column < Sk and, causal, visible to the block's first row q0) with no
+// bias or a bias row staged in shared memory (brow_s, else null) takes
+// the scale and the bias only.
+template <int NT>
+__device__ __forceinline__ void logits_q(float (&s)[NT][4], const Params& p,
+                                         const float* bias,
+                                         const float* brow_s, int k0,
+                                         int q0, const int (&row)[2],
+                                         int c) {
+  const bool interior = k0 + 8 * NT <= p.Sk &&
+                        !(p.causal && q0 + (p.Sk - p.Sq) < k0 + 8 * NT - 1);
+  const float scale = p.scale;
+  if (interior && brow_s != nullptr)
+    map<NT>(s, c, [&](float x, int, int cc) { return x * scale + brow_s[cc]; });
+  else if (interior && bias == nullptr)
+    map<NT>(s, c, [&](float x, int, int) { return x * scale; });
+  else
+    map<NT>(s, c, [&](float x, int i, int cc) {
+      const int col = k0 + cc;
+      return col < p.Sk ? logit(p, bias, x, row[i], col, row[i] < p.Sq)
+                        : -INFINITY;
+    });
+}
+
+// Forward.  One block of 4 warps per (batch*head, 64 query rows, HO of
+// the H output columns), each warp 16 rows; key tiles of BK rows (K, V
+// and, for a bias that is one row for all queries, its row)
+// double-buffered by cp.async.  With HO < H each column block computes
+// the same scores and softmax state; the first writes lse.
+template <int H, int BK, int HO>
+__global__ void __launch_bounds__(kTcThreads, H == 64 ? 4 : 1)
+    fwd_tc_kernel(Params p) {
+  constexpr int NT = BK / 8, NO = HO / 8;
+  constexpr uint32_t QB = kRows * H * 2, KB = BK * H * 2;
+  constexpr uint32_t STAGE = 2 * KB + BK * 4;      // K, V, bias row
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t q_s = smem_u32(tc_smem);
+  const int bh = blockIdx.x, b = bh / p.N, n = bh % p.N;
+  const int q0 = blockIdx.y * kRows, h0 = blockIdx.z * HO;
+  const int lane = threadIdx.x & 31, wr = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, c = lane & 3;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.qs.b + n * p.qs.n;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.ks.b + n * p.ks.n;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.vs.b + n * p.vs.n;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.bb + n * p.bn;
+  const bool brow = bias != nullptr && p.bq == 0;  // BERT's padding mask
+  auto stage = [&](int t) { return QB + (t & 1) * STAGE; };
+  auto load_kv = [&](int t) {
+    const uint32_t at = q_s + stage(t);
+    load_tile<H, BK>(at, kb, p.ks.s, t * BK, p.Sk);
+    load_tile<H, BK>(at + KB, vb, p.vs.s, t * BK, p.Sk);
+    if (brow) load_row<BK>(at + 2 * KB, bias, p.bk, t * BK, p.Sk);
+  };
+
+  int nk = (p.Sk + BK - 1) / BK;
+  if (p.causal)
+    nk = min(nk, (min(q0 + kRows, p.Sq) - 1 + p.Sk - p.Sq) / BK + 1);
+  load_tile<H, kRows>(q_s, qb, p.qs.s, q0, p.Sq);
+  load_kv(0);
+  cp_commit();
+
+  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk) {           // tile t + 1 loads while tile t computes
+      load_kv(t + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * BK;
+    const float* brow_s =
+        brow ? reinterpret_cast<const float*>(tc_smem + stage(t) + 2 * KB)
+             : nullptr;
+    float s[NT][4];
+    qk<H, NT>(s, q_s, wr, q_s + stage(t), lane);
+    logits_q(s, p, bias, brow_s, k0, q0, row, c);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      // the 4 lanes of a quad hold the row's columns
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // the tile's first column is < Sk, so m_new is finite
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = exp_(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pj = exp_(s[j][2 * i + e] - m_new);  // 0 past Sk
+          rs += pj;
+          s[j][2 * i + e] = pj;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[i] = alpha[i] * l[i] + rs;
+      m[i] = m_new;
+    }
+    uint32_t pa[NT / 2][4];     // p rounded to bf16 before P V
+    to_a<NT>(pa, s);
+    pv<H, NT / 2, NO>(acc, pa, q_s + stage(t) + KB, h0 / 8, alpha, lane);
+    __syncthreads();            // stage t & 1 is refilled at t + 2
+  }
+
+  const float ls[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
+  const float inv[2] = {1.f / ls[0], 1.f / ls[1]};
+  bf16* ob = static_cast<bf16*>(p.out) + b * p.os.b + n * p.os.n + h0;
+  store_rows<H, NO>(acc, inv, q_s, wr, ob, p.os.s, q0 + wr, p.Sq, lane);
+  if (c == 0 && h0 == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < p.Sq)
+        p.lse_out[static_cast<long long>(bh) * p.Sq + row[i]] =
+            m[i] + logf(ls[i]);
+}
+
+// dQ.  One block per (batch*head, 64 query rows, HO of the H columns),
+// each warp 16 rows; key tiles of BK rows (K, V, a one-row bias)
+// double-buffered by cp.async.
+template <int H, int BK, int HO>
+__global__ void __launch_bounds__(kTcThreads, H == 64 ? 4 : 1)
+    dq_tc_kernel(Params p) {
+  constexpr int NT = BK / 8, NO = HO / 8;
+  constexpr uint32_t QB = kRows * H * 2, KB = BK * H * 2;
+  constexpr uint32_t STAGE = 2 * KB + BK * 4;      // K, V, bias row
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t q_s = smem_u32(tc_smem), do_s = q_s + QB;
+  const int bh = blockIdx.x, b = bh / p.N, n = bh % p.N;
+  const int q0 = blockIdx.y * kRows, h0 = blockIdx.z * HO;
+  const int lane = threadIdx.x & 31, wr = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, c = lane & 3;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.qs.b + n * p.qs.n;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.ks.b + n * p.ks.n;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.vs.b + n * p.vs.n;
+  const bf16* dob =
+      static_cast<const bf16*>(p.dout) + b * p.dos.b + n * p.dos.n;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.bb + n * p.bn;
+  const bool brow = bias != nullptr && p.bq == 0;
+  auto stage = [&](int t) { return 2 * QB + (t & 1) * STAGE; };
+  auto load_kv = [&](int t) {
+    const uint32_t at = q_s + stage(t);
+    load_tile<H, BK>(at, kb, p.ks.s, t * BK, p.Sk);
+    load_tile<H, BK>(at + KB, vb, p.vs.s, t * BK, p.Sk);
+    if (brow) load_row<BK>(at + 2 * KB, bias, p.bk, t * BK, p.Sk);
+  };
+
+  int nk = (p.Sk + BK - 1) / BK;
+  if (p.causal)
+    nk = min(nk, (min(q0 + kRows, p.Sq) - 1 + p.Sk - p.Sq) / BK + 1);
+  load_tile<H, kRows>(q_s, qb, p.qs.s, q0, p.Sq);
+  load_tile<H, kRows>(do_s, dob, p.dos.s, q0, p.Sq);
+  load_kv(0);
+  cp_commit();
+
+  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float lse[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = static_cast<long long>(bh) * p.Sq + row[i];
+    lse[i] = row[i] < p.Sq ? p.lse_in[at] : 0.f;
+    dd[i] = row[i] < p.Sq ? p.dd[at] : 0.f;
+  }
+  const float one[2] = {1.f, 1.f};
+  float dq[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk) {
+      load_kv(t + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * BK;
+    const uint32_t kt = q_s + stage(t);
+    const float* brow_s =
+        brow ? reinterpret_cast<const float*>(tc_smem + stage(t) + 2 * KB)
+             : nullptr;
+    float s[NT][4], dp[NT][4];
+    qk<H, NT>(s, q_s, wr, kt, lane);
+    qk<H, NT>(dp, do_s, wr, kt + KB, lane);
+    // p is 0 past Sk (logit -inf); rows past Sq are computed but not
+    // stored
+    logits_q(s, p, bias, brow_s, k0, q0, row, c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pij = exp_(s[j][2 * i + e] - lse[i]);
+          s[j][2 * i + e] = pij * (dp[j][2 * i + e] - dd[i]) * p.scale;
+        }
+    uint32_t da[NT / 2][4];     // ds rounded to bf16 before dS K
+    to_a<NT>(da, s);
+    pv<H, NT / 2, NO>(dq, da, kt, h0 / 8, one, lane);
+    __syncthreads();
+  }
+  bf16* out = static_cast<bf16*>(p.out) + b * p.os.b + n * p.os.n + h0;
+  store_rows<H, NO>(dq, one, q_s, wr, out, p.os.s, q0 + wr, p.Sq, lane);
+}
+
+// dK and dV.  One block per (batch*head, 64 key rows, HO of the H output
+// columns), each warp 16 key rows; query tiles of BQ rows (Q, dO, lse,
+// dd) double-buffered by cp.async.  The scores are computed transposed,
+// keys as the fragment's rows, so P^T and dS^T are A operands in
+// registers.
+template <int H, int BQ, int HO>
+__global__ void __launch_bounds__(kTcThreads) dkv_tc_kernel(Params p) {
+  constexpr int NT = BQ / 8, NO = HO / 8;
+  constexpr uint32_t KB = kRows * H * 2, QB = BQ * H * 2;
+  constexpr uint32_t STAGE = 2 * QB + 2 * BQ * 4;   // Q, dO, lse, dd
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t k_s = smem_u32(tc_smem), v_s = k_s + KB;
+  const int bh = blockIdx.x, b = bh / p.N, n = bh % p.N;
+  const int k0 = blockIdx.y * kRows, h0 = blockIdx.z * HO;
+  const int lane = threadIdx.x & 31, wr = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, c = lane & 3;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.qs.b + n * p.qs.n;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.ks.b + n * p.ks.n;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.vs.b + n * p.vs.n;
+  const bf16* dob =
+      static_cast<const bf16*>(p.dout) + b * p.dos.b + n * p.dos.n;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.bb + n * p.bn;
+  const int offset = p.Sk - p.Sq;
+  const int nq = (p.Sq + BQ - 1) / BQ;
+  // causal: the first query tile whose last row sees column k0
+  const int t0 = p.causal ? max(0, k0 - offset) / BQ : 0;
+  auto stage = [&](int t) { return 2 * KB + ((t - t0) & 1) * STAGE; };
+  auto load_q = [&](int t) {
+    const uint32_t at = k_s + stage(t);
+    const long long row0 = static_cast<long long>(bh) * p.Sq;
+    load_tile<H, BQ>(at, qb, p.qs.s, t * BQ, p.Sq);
+    load_tile<H, BQ>(at + QB, dob, p.dos.s, t * BQ, p.Sq);
+    load_row<BQ>(at + 2 * QB, p.lse_in + row0, 1, t * BQ, p.Sq);
+    load_row<BQ>(at + 2 * QB + 4 * BQ, p.dd + row0, 1, t * BQ, p.Sq);
+  };
+
+  load_tile<H, kRows>(k_s, kb, p.ks.s, k0, p.Sk);
+  load_tile<H, kRows>(v_s, vb, p.vs.s, k0, p.Sk);
+  load_q(t0);
+  cp_commit();
+
+  // the thread's key rows and, for a bias that is one row for all
+  // queries (bq == 0: BERT's padding mask), their bias values
+  const int kr[2] = {k0 + wr + g, k0 + wr + g + 8};
+  float kbias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    kbias[i] = bias != nullptr && kr[i] < p.Sk ? bias[kr[i] * p.bk] : 0.f;
+  const float one[2] = {1.f, 1.f};
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int t = t0; t < nq; ++t) {
+    if (t + 1 < nq) {
+      load_q(t + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t qs = k_s + stage(t), dos = qs + QB;
+    const float* lse =
+        reinterpret_cast<const float*>(tc_smem + stage(t) + 2 * QB);
+    const float* dd = lse + BQ;
+    const int q0 = t * BQ;
+    float st[NT][4], dpt[NT][4];   // S^T, dP^T: key rows x query columns
+    qk<H, NT>(st, k_s, wr, qs, lane);
+    qk<H, NT>(dpt, v_s, wr, dos, lane);
+    // logits, -inf past Sq (p = 0); key rows past Sk are not stored.
+    // Every query row < Sq, every key < Sk and, causal, every key visible
+    // to the tile's first query row, with no bias or a bias row: the
+    // scale and the bias only
+    const bool interior = q0 + BQ <= p.Sq && k0 + kRows <= p.Sk &&
+                          !(p.causal && q0 + offset < k0 + kRows - 1);
+    const float scale = p.scale;
+    if (interior && (bias == nullptr || p.bq == 0))
+      map<NT>(st, c, [&](float x, int i, int) { return x * scale + kbias[i]; });
+    else
+      map<NT>(st, c, [&](float x, int i, int qc) {
+        const int q = q0 + qc;
+        return q < p.Sq ? logit(p, bias, x, q, kr[i], kr[i] < p.Sk)
+                        : -INFINITY;
+      });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = 8 * j + 2 * c + e;
+          const float pt = exp_(st[j][2 * i + e] - lse[qi]);
+          st[j][2 * i + e] = pt;
+          dpt[j][2 * i + e] = pt * (dpt[j][2 * i + e] - dd[qi]) * scale;
+        }
+    uint32_t pa[NT / 2][4], da[NT / 2][4];   // p, ds rounded to bf16
+    to_a<NT>(pa, st);
+    to_a<NT>(da, dpt);
+    pv<H, NT / 2, NO>(dv, pa, dos, h0 / 8, one, lane);
+    pv<H, NT / 2, NO>(dk, da, qs, h0 / 8, one, lane);
+    __syncthreads();
+  }
+  bf16* dkb = static_cast<bf16*>(p.dk) + b * p.dks.b + n * p.dks.n + h0;
+  bf16* dvb = static_cast<bf16*>(p.dv) + b * p.dvs.b + n * p.dvs.n + h0;
+  store_rows<H, NO>(dk, one, k_s, wr, dkb, p.dks.s, k0 + wr, p.Sk, lane);
+  store_rows<H, NO>(dv, one, v_s, wr, dvb, p.dvs.s, k0 + wr, p.Sk, lane);
+}
+
+// 16-byte rows: the tile copies and the output stores are 16 bytes wide
+bool rows16(const void* ptr, const Str& s) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s.b % 8 == 0 &&
+         s.n % 8 == 0 && s.s % 8 == 0;
+}
+
+template <Kind K, int H>
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  // fwd, dQ: keys a step; dK/dV: query rows a step; all: output columns
+  // a block.  Column blocks (HO < H) recompute the same scores; with
+  // them and the smaller steps past H = 64, the f32 accumulators (16 x HO
+  // a warp, two of them in dK/dV) and the scores stay in registers,
+  // unspilled (ptxas -v).
+  constexpr int BK = 32;
+  constexpr int BQ = H == 64 ? 64 : 16;
+  constexpr int HO = K == kDkv ? 64 : (H == 64 ? 64 : 128);
+  constexpr size_t own = kRows * H * 2;
+  constexpr size_t smem =
+      K == kFwd  ? own + 2 * (2 * BK * H * 2 + BK * 4)
+      : K == kDq ? 2 * own + 2 * (2 * BK * H * 2 + BK * 4)
+                 : 2 * own + 2 * (2 * BQ * H * 2 + 2 * BQ * 4);
+  void (*kern)(Params);
+  if constexpr (K == kFwd)
+    kern = fwd_tc_kernel<H, BK, HO>;
+  else if constexpr (K == kDq)
+    kern = dq_tc_kernel<H, BK, HO>;
+  else
+    kern = dkv_tc_kernel<H, BQ, HO>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int rows = K == kDkv ? p.Sk : p.Sq;
+  const dim3 grid(B * p.N, (rows + kRows - 1) / kRows, H / HO);
+  kern<<<grid, kTcThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <Kind K>
+cudaError_t launch_h(const Params& p, int B, int H, cudaStream_t stream) {
+  // the wrapper copies a misaligned view; one that reaches here is refused
+  if (!rows16(p.q, p.qs) || !rows16(p.k, p.ks) || !rows16(p.v, p.vs) ||
+      !rows16(p.dout, p.dos) || !rows16(p.out, p.os) ||
+      !rows16(p.dk, p.dks) || !rows16(p.dv, p.dvs))
+    return cudaErrorMisalignedAddress;
+  switch (H) {
+    case 64: return launch<K, 64>(p, B, stream);
+    case 128: return launch<K, 128>(p, B, stream);
+    case 256: return launch<K, 256>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 template <Kind K>
 int run(Params p, const long long* d, int dtype, void* stream) {
   const int B = static_cast<int>(d[0]), H = static_cast<int>(d[4]);
@@ -650,15 +1322,17 @@ int run(Params p, const long long* d, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_h<K, float>(p, B, H, s);
-    case 1: return launch_h<K, __nv_bfloat16>(p, B, H, s);
+    case 1: return tc::launch_h<K>(p, B, H, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes of q, k, v, dO and every output: 0 f32, 1 bf16.  bias is
-// f32 or null.
+// dtype codes of q, k, v, dO and every output: 0 f32 (the FMA kernels),
+// 1 bf16 (the tensor-core kernels, which return cudaErrorMisalignedAddress
+// without launching for a start or stride that is not 16-byte aligned).
+// bias is f32 or null.
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, const void* bias,
                                      void* o, void* lse,

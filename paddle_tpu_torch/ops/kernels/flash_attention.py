@@ -19,11 +19,14 @@ backward :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` (B2).  On CUDA
 tensors each launches its kernel and counts the launch in
 ``flash_attention.launches_fwd``, ``launches_dq`` or ``launches_dkv``;
 on CPU tensors each computes its plain version, which is also what the
-kernels are held against.  On CUDA nothing falls back: a head_dim the
-kernels are not built for (64, 128, 256) or a dtype other than
-f32/bf16 raises.  The
-kernels take any Sq and Sk; :func:`supports` keeps the TPU kernel's gate
-(S a multiple of 128) for comparison with the JAX package only.
+kernels are held against.  The dtype picks the kernel: bf16 runs the
+tensor-core kernels (``mma.sync``, p and ds rounded to bf16 where they
+become operands, exactly as the plain versions round them), f32 the FMA
+kernels.  On CUDA nothing falls back: a head_dim the kernels are not
+built for (64, 128, 256) or a dtype other than f32/bf16 raises, and a
+view whose start or strides are not 16-byte aligned is copied first.
+The kernels take any Sq and Sk; :func:`supports` keeps the TPU kernel's
+gate (S a multiple of 128) for comparison with the JAX package only.
 """
 from __future__ import annotations
 
@@ -157,15 +160,17 @@ def _bias4(bias, B, N, Sq, Sk):
 
 def _strided(t, dtype, name):
     """``t`` in the layout the kernels read: head_dim contiguous, the
-    other strides multiples of 4 elements and the start 4-element aligned
-    (each thread loads 4 elements in one access).  A tensor in another
-    layout is copied to a contiguous one."""
+    other strides and the start multiples of 16 bytes (f32: 4 elements,
+    which the FMA kernels load in one access; bf16: 8, the 16-byte rows
+    the tensor-core kernels copy with cp.async).  A tensor in another
+    layout is copied into fresh memory, contiguous and aligned."""
     if t.dtype != dtype:
         raise TypeError(f"flash_attention: {name} has dtype {t.dtype}, "
                         f"q has {dtype}")
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
-            or t.data_ptr() % (4 * t.element_size()):
-        t = t.contiguous()
+    align = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % align for s in t.stride()[:-1]) \
+            or t.data_ptr() % 16:
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
 
 

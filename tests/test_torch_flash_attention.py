@@ -192,3 +192,53 @@ def test_sdpa_layout_and_cpu_dispatch_stay_plain():
         attention_bnsh(*t, attn_mask=torch.from_numpy(mask)).numpy(),
         np.asarray(fa_jax(*(jnp.asarray(x.numpy()) for x in t),
                           bias=jnp.asarray(mask))._value), **FWD)
+
+
+def _views(dtype):
+    """Named (B, N, S, H) = (2, 2, 8, 64) views of one buffer and whether
+    the kernels read them in place (16-byte start and strides)."""
+    B, N, S, H = 2, 2, 8, 64
+    buf = torch.arange(B * S * (N * H + 8) + 8, dtype=torch.float32).to(dtype)
+    bsnh = lambda w: w.view(B, S, N, H).transpose(1, 2)
+    wide = buf[:B * S * (N * H + 8)].view(B, S, N * H + 8)
+    flat = buf[:B * N * S * H]
+    return {
+        # the model's heads of a (B, S, N*H) projection: kept
+        "bert_heads": (bsnh(buf[:B * S * N * H].view(B, S, N * H)), False),
+        # a row stride of N*H + 8 elements: 16-byte multiple in both
+        "padded_rows": (bsnh(wide[..., :N * H]), False),
+        # a start 4 elements in: 16 bytes in f32, 8 in bf16
+        "start_4": (bsnh(wide[..., 4:4 + N * H]), dtype == torch.bfloat16),
+        # contiguous, but 2 elements into the buffer: never 16-byte aligned
+        "contiguous_start_2": (buf[2:2 + B * N * S * H].view(B, N, S, H),
+                               True),
+        # head_dim strided
+        "head_dim_strided": (flat.view(B, N, H, S).transpose(2, 3), True),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["bert_heads", "padded_rows", "start_4",
+                                  "contiguous_start_2", "head_dim_strided"])
+def test_strided_copies_what_the_kernels_cannot_read_and_keeps_the_rest(
+        name, dtype):
+    """The wrappers' layout rule: head_dim contiguous and the start and
+    other strides multiples of 16 bytes (4 f32, 8 bf16: the tensor-core
+    kernels copy 16-byte rows).  Anything else is copied into fresh,
+    aligned memory (a contiguous tensor whose start is misaligned too,
+    where ``contiguous()`` would hand the same memory back)."""
+    t, copied = _views(dtype)[name]
+    got = fa._strided(t, dtype, "q")
+    assert (got is not t) == copied
+    assert got.stride(-1) == 1 and got.data_ptr() % 16 == 0
+    assert all(s % (16 // got.element_size()) == 0
+               for s in got.stride()[:-1])
+    assert torch.equal(got, t)
+    if copied:
+        assert got.is_contiguous() and got.data_ptr() != t.data_ptr()
+
+
+def test_strided_raises_on_a_dtype_other_than_q():
+    t, _ = _views(torch.float32)["bert_heads"]
+    with pytest.raises(TypeError, match="dtype"):
+        fa._strided(t, torch.bfloat16, "k")

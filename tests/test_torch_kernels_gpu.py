@@ -147,8 +147,27 @@ FA_CASES = {
 }
 
 
+# the bf16 tensor-core kernels (mma.sync on 16-row fragments, 64-row
+# blocks, key steps of 64, or 32 at H = 256) at lengths that are no
+# multiple of 16 or 64, every head_dim, the three bias shapes
+FA_TC_CASES = {
+    "sq1": (2, 3, 1, 1, 64, False, None),
+    "sq1_sk200_pad_bias": (2, 2, 1, 200, 128, False, (2, 1, 1, 200)),
+    "s17_causal": (2, 2, 17, 17, 64, True, None),
+    "s17_h256_full_bias": (1, 2, 17, 17, 256, False, (1, 2, 17, 17)),
+    "s200_h128_causal_shared_bias": (2, 2, 200, 200, 128, True,
+                                     (1, 1, 200, 200)),
+    "s200_h256_causal_pad_bias": (2, 2, 200, 200, 256, True, (2, 1, 1, 200)),
+    "cross_causal_128x384_pad_bias": (2, 2, 128, 384, 64, True,
+                                      (2, 1, 1, 384)),
+    "cross_causal_128x384_h256": (1, 2, 128, 384, 256, True, None),
+    "cross_17x200_h128_full_bias": (1, 3, 17, 200, 128, False,
+                                    (1, 3, 17, 200)),
+}
+
+
 def _fa_case(name, dev, dtype, seed=0):
-    B, N, Sq, Sk, H, causal, bshape = FA_CASES[name]
+    B, N, Sq, Sk, H, causal, bshape = {**FA_CASES, **FA_TC_CASES}[name]
     rng = np.random.RandomState(seed)
     t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
     q, k, v = t(B, N, Sq, H), t(B, N, Sk, H), t(B, N, Sk, H)
@@ -204,6 +223,81 @@ def test_flash_attention_kernels_match_plain_versions(cuda, name, dtype):
     n1 = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_dq,
           fa.flash_attention.launches_dkv)
     assert tuple(b - a for a, b in zip(n0, n1)) == (1, 1, 1)
+
+
+def _fa_run(q, k, v, do, bias, causal):
+    """The three kernels on one input: o, lse (forward), and dQ, dK, dV
+    from the plain forward's lse."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    o, lse = fa.flash_fwd(q, k, v, bias, causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, causal)
+    dd = fa.flash_dd(o_ref, do)
+    dq = fa.flash_bwd_dq(q, k, v, bias, lse_ref, do, dd, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, bias, lse_ref, do, dd, causal)
+    return (o, lse, dq, dk, dv), (o_ref, lse_ref, dd)
+
+
+@pytest.mark.parametrize("name", list(FA_TC_CASES))
+def test_flash_attention_tensor_core_kernels_match_plain_versions(cuda,
+                                                                  name):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    (q, k, v, do), bias, causal = _fa_case(name, cuda, torch.bfloat16)
+    (o, lse, dq, dk, dv), (o_ref, lse_ref, _) = _fa_run(q, k, v, do, bias,
+                                                        causal)
+    want = fa.flash_bwd_reference(q, k, v, bias, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    tol = FA_TOL[torch.bfloat16]
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert _max_rel(o, o_ref) <= tol
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert bool(torch.isfinite(got).all())
+        assert _max_rel(got, ref) <= tol
+    o32, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), bias,
+                                    causal)
+    torch.testing.assert_close(o.float(), o32, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["s200_h256_causal_pad_bias",
+                                  "cross_causal_128x384_pad_bias",
+                                  "h128_pad_bias", "s128_h64"])
+def test_flash_attention_tensor_core_kernels_repeat_bit_for_bit(cuda, name):
+    """One writer per output, fixed-order sums, no atomics: two launches
+    on one input give the same bits."""
+    (q, k, v, do), bias, causal = _fa_case(name, cuda, torch.bfloat16,
+                                           seed=3)
+    first, _ = _fa_run(q, k, v, do, bias, causal)
+    again, _ = _fa_run(q, k, v, do, bias, causal)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_misaligned_views_are_copied_not_misread(cuda):
+    """A bf16 view whose rows are 8-byte but not 16-byte aligned is
+    copied by the wrapper (same result as an aligned copy); handed to
+    the launch function directly, it is refused, never read."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    B, N, S, H = 2, 2, 77, 64
+    rng = np.random.RandomState(4)
+    wide = torch.from_numpy(rng.randn(B, S, N * H + 4).astype(np.float32)) \
+        .to(cuda, torch.bfloat16)
+    view = wide[..., 4:].view(B, S, N, H).transpose(1, 2)   # 8-byte start
+    assert view.data_ptr() % 16 == 8
+    aligned = view.contiguous()
+    got, _ = fa.flash_fwd(view, view, view)
+    want, _ = fa.flash_fwd(aligned, aligned, aligned)
+    assert torch.equal(got, want)
+    o = torch.empty_like(aligned)
+    lse = torch.empty(B, N, S, device=cuda)
+    dims = fa._dims(B, N, S, S, H, view, view, view, None, o, None, None)
+    rc = _build.library("flash_attention").flash_attn_fwd_launch(
+        view.data_ptr(), view.data_ptr(), view.data_ptr(), None,
+        o.data_ptr(), lse.data_ptr(), ctypes.addressof(dims), 0.125, 0, 1,
+        fa._stream())
+    assert rc != 0
 
 
 def test_flash_attention_autograd_and_dispatch_on_cuda(cuda):

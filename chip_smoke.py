@@ -12,11 +12,15 @@ exits non-zero without printing a result:
   2. build    nvcc builds every kernel source of the port; the fused
               conv library's SASS (cuobjdump) holds HGMMA, the tensor
               cores' wgmma, and the flash-attention library's HMMA
-              (mma.sync, its bf16 kernels), with no register spills
-              (nvcc -Xptxas -v);
-  3. kernels  each kernel against its plain PyTorch version on the card,
-              then its time beside the plain version, a library call and
-              the card's bound;
+              (mma.sync, its bf16 kernels); the flash-attention and
+              flash-decode libraries spill no register (nvcc -Xptxas -v);
+  3. kernels  each decode kernel (B3, B4: one cluster launch a call)
+              against its plain PyTorch version on the card at cache
+              lengths 32, 200, 256 and 1024, head_dims 64 and 128, f32
+              and bf16, full, ragged and edge windows; two launches on
+              one input give the same bits; then its time at the served
+              shape and at S = 1024 beside the plain version, a library
+              call and the card's bound;
   4. serving  GPT-2 small (random bf16 weights from --seed) served
               through Server.register_decode/start/submit_decode, once
               with the bf16 KV cache and once with the int8 one: every
@@ -26,11 +30,14 @@ exits non-zero without printing a result:
               and with the batch-invariant ones, in turns, for the
               served tok/s of each; then one 8-prompt request per wave at short
               sequence buckets (16, 32), whose caches of 32 and 48
-              columns are no multiple of the kernel's 64-column split:
+              columns are shorter than the kernel's 64-column span:
               launch counts again, and every row equals generate() of the
               same batch and its own batch-1 generate();
   5. profile  one 8-row decode loop timed, then traced with
-              torch.profiler: device busy time and kernel time by name;
+              torch.profiler: device busy time, kernel launches a step
+              and kernel time by name; the decode kernel's time
+              (decode_cluster_kernel) must be > 0 when the traced loop
+              launched it;
   6. e2e      kernel against plain end to end: f32 generate() with
               FLAGS_use_flash_decode on and off gives equal tokens and
               last logits within 1e-4;
@@ -101,7 +108,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 # tolerances of a kernel against its plain version on the same inputs:
-#  * f32: both compute f32 softmax attention, the kernel in split
+#  * f32: both compute f32 softmax attention, the kernel in per-rank
 #    partials merged exactly, so only the summation order differs;
 #  * bf16: the kernel's output is rounded to bf16 while the plain
 #    version runs in f32 on the same bf16 inputs: half a bf16 step at
@@ -110,11 +117,14 @@ ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # bf16 kernel against the plain version run on the bf16 tensors
 # themselves, which rounds p to bf16 before PV as JAX does: the two round
 # p and the output at the same points, and differ where the kernel
-# rounds p against its split's max instead of the global one, and where
+# rounds p against its block's running max (over chunks of 8 to 32
+# columns of a cluster rank's span) instead of the global one, and where
 # that moves an output across a rounding boundary.  A CPU emulation of
-# the kernel's rounding over these shapes differs from the plain version
-# by at most 2^-7 of the row's largest |out|; the bound is twice that,
-# per (batch, head) row.
+# the kernel's order of arithmetic (tests/test_torch_flash_decode_order.py
+# ``_kernel_order``: S of 32 to 1024, head_dims 64 to 256, five seeds)
+# differs from the plain version and from JAX's reference by at most
+# 0.00741 of the row's largest |out| (1.9 bf16 steps, 2^-7.08); the bound
+# is 2^-6, per (batch, head) row.
 BF16_ROW_RTOL = 2.0 ** -6
 
 # the served configuration: GPT-2 small, two batch buckets, two
@@ -204,8 +214,8 @@ def phase_build():
           f"({sass['flash_attention']})")
     # their accumulators and scores stay in registers at every head_dim
     spills = {n: _spill_bytes(r["log"]) for n, r in report.items()}
-    check(spills["flash_attention"] == 0,
-          f"flash_attention spills registers: {spills}")
+    for n in ("flash_attention", "flash_decode"):
+        check(spills[n] == 0, f"{n} spills registers: {spills}")
     log("build", seconds=round(time.perf_counter() - t0, 3),
         sources={n: {"seconds": round(r["seconds"], 3),
                      "cached": r["cached"]} for n, r in report.items()},
@@ -226,7 +236,7 @@ def _windows(torch, kind, B, S, g):
     hi = torch.randint(S // 2 + 1, S + 1, (B,), generator=g, device=dev,
                        dtype=torch.int32)
     if kind == "edge":
-        lo[0], hi[0] = max(S - 40, 0), S   # every split but the last empty
+        lo[0], hi[0] = max(S - 40, 0), S   # every rank but the last empty
         lo[1], hi[1] = 17, 18          # a single valid column
     return lo, hi
 
@@ -294,8 +304,8 @@ def phase_kernels(torch, seed):
     worst = {"flash_decode": 0.0, "flash_decode_quant": 0.0}
     worst_row = {"flash_decode": 0.0, "flash_decode_quant": 0.0}
     B, N = 8, 12
-    # 256 and 1024 on the split grid; 32 and 200 off it (the last split
-    # masks its columns past S)
+    # 256 and 1024: four cluster ranks of 64 and 256 columns; 32: one
+    # rank; 200: four ranks of 50 columns
     for S in (32, 200, 256, 1024):
         for H in (64, 128):
             for dt in (torch.float32, torch.bfloat16):
@@ -318,11 +328,17 @@ def phase_kernels(torch, seed):
                                 q, k, v, lo, hi),
                             "flash_decode_quant": fd.flash_decode_quant_plain(
                                 q, k8, v8, ks, vs, lo, hi)}
+                    # one writer per output, merged in rank order
+                    again = {"flash_decode": fd.flash_decode(q, k, v, lo, hi),
+                             "flash_decode_quant": fd.flash_decode_quant(
+                                 q, k8, v8, ks, vs, lo, hi)}
                     torch.cuda.synchronize()
                     for kern, o, w in (("flash_decode", got, want),
                                        ("flash_decode_quant", gotq,
                                         wantq)):
                         where = f"{kern} S={S} H={H} {name} {kind}"
+                        check(torch.equal(o, again[kern]),
+                              f"{where}: two launches on one input differ")
                         check(o.shape == q.shape and o.dtype == dt,
                               f"{kern} returned {o.shape} {o.dtype}")
                         check(bool(torch.isfinite(o).all()),
@@ -339,7 +355,8 @@ def phase_kernels(torch, seed):
                                   f"> {BF16_ROW_RTOL}")
                             worst_row[kern] = max(worst_row[kern], rel)
                 log("kernels", check=f"S={S} H={H} {name}",
-                    windows="full,ragged,edge", ok=True)
+                    windows="full,ragged,edge", repeats_bit_for_bit=True,
+                    ok=True)
     log("kernels", max_abs_err=worst, atol=ATOL,
         bf16_vs_bf16_plain_max_row_rel_err=worst_row,
         bf16_row_rtol=BF16_ROW_RTOL)
@@ -605,6 +622,7 @@ def phase_profile(torch, model, seed):
     busy time and the kernel time by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
     from paddle_tpu_torch.text.generation import Generator
     gen = Generator(model, seq_buckets=SEQ_BUCKETS, max_len=MAX_LEN)
     P = SEQ_BUCKETS[0]
@@ -635,7 +653,9 @@ def phase_profile(torch, model, seed):
         with _plain_serving_gemms():
             plain += [decode_ms(False)[0] for _ in range(2)]
         invariant += [decode_ms(False)[0] for _ in range(2 if i < 2 else 1)]
+    n0 = fd.flash_decode.launches
     traced_ms, prof = decode_ms(True)
+    fd_launches = fd.flash_decode.launches - n0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     out = {"batch": BATCH_BUCKETS[-1], "steps": MAX_NEW, "cache": C,
@@ -651,16 +671,19 @@ def phase_profile(torch, model, seed):
     if busy <= 0:
         out["device_busy_ms_per_step"] = "not measured (no CUDA events)"
     else:
-        fd = sum(e.self_device_time_total for e in kernels
-                 if "decode_split_kernel" in e.key
-                 or "decode_merge_kernel" in e.key) / 1e3 / MAX_NEW
+        fd_ms = sum(e.self_device_time_total for e in kernels
+                    if "decode_cluster_kernel" in e.key) / 1e3 / MAX_NEW
+        check(fd_ms > 0 or fd_launches == 0,
+              f"profile: {fd_launches} decode kernel launches, but no "
+              "device time under decode_cluster_kernel")
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
         out.update(
             device_busy_ms_per_step=round(busy, 4),
             device_idle_share=round(1 - busy / step_ms, 4),
             kernel_launches_per_step=round(
                 sum(e.count for e in kernels) / MAX_NEW, 2),
-            flash_decode_ms_per_step=round(fd, 4),
+            flash_decode_launches_per_step=fd_launches / MAX_NEW,
+            flash_decode_ms_per_step=round(fd_ms, 4),
             top_kernels=[{"name": e.key[:90],
                           "calls_per_step": round(e.count / MAX_NEW, 2),
                           "ms_per_step": round(e.self_device_time_total

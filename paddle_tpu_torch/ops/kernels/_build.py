@@ -29,11 +29,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SOURCES: Dict[str, Dict[str, list]] = {
+    # tensors (the output last), then B*N, N, S, H, dtype, stream
     "flash_decode": {
-        "flash_decode_launch":
-            [_P] * 9 + [_I] * 5 + [_P],
-        "flash_decode_quant_launch":
-            [_P] * 11 + [_I] * 5 + [_P],
+        "flash_decode_launch": [_P] * 6 + [_I] * 5 + [_P],
+        "flash_decode_quant_launch": [_P] * 8 + [_I] * 5 + [_P],
     },
     # tensors, then the int64 dims array, scale, causal, dtype, stream
     "flash_attention": {

@@ -2,24 +2,31 @@
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_decode.py``.  The decode
 step issues ONE query row per sequence against the whole KV ring cache;
-the CUDA kernels (``csrc/flash_decode.cu``) split the cached context
-into blocks of 64 columns, compute a partial softmax-attention
-per (sequence*head, split) in parallel, and merge the partials exactly:
+the CUDA kernels (``csrc/flash_decode.cu``) take each (sequence*head)
+row in one thread-block cluster of up to 4 blocks, each over a span of
+the cached context.  A block brings the live rows of its span into
+shared memory with Hopper bulk copies (a 3-stage ring of 8 KB chunks),
+computes a partial attention with an online softmax, and rank 0 of the
+cluster merges the partials exactly, in rank order, in its shared
+memory:
 
-    g = max_s m_s,   out = sum_s acc_s e^(m_s - g) / sum_s l_s e^(m_s - g)
+    g = max_r m_r,   out = sum_r acc_r e^(m_r - g) / sum_r l_r e^(m_r - g)
+
+One launch per call, no scratch in device memory, no atomics.
 
 Row ``b``'s valid cache columns are ``[start[b], end[b])`` (the ring is
-left-padded per row); outside it the kernels mask with the finite
-``-1e30``.  Layout: q ``(B, N, 1, H)``, k/v ``(B, N, S, H)``.
+left-padded per row); columns outside it are never read (the plain
+versions mask them with the finite ``-1e30``).  Layout: q ``(B, N, 1,
+H)``, k/v ``(B, N, S, H)``.
 
 ``flash_decode`` and ``flash_decode_quant`` launch their kernel on CUDA
 tensors and count each launch in their ``launches`` attribute.  On CPU
 tensors they compute the plain PyTorch version instead, which is also
 what the kernels are held against.  On CUDA they never fall back: an
 input the kernel does not take raises.  The kernels take any cache
-length S (the last split masks its columns past S) and head_dim in
-{64, 128, 256}; ``supports_decode`` keeps the TPU kernel's gate, which
-also asks S % 128 == 0, for comparison with the JAX package only.
+length S and head_dim in {64, 128, 256}; ``supports_decode`` keeps the
+TPU kernel's gate, which also asks S % 128 == 0, for comparison with
+the JAX package only.
 """
 from __future__ import annotations
 
@@ -31,7 +38,6 @@ import torch
 from . import _build
 
 _HEAD_DIMS = (64, 128, 256)  # one kernel instance per head_dim
-_BLOCK_K = 64                # kBlockK of the .cu: cached columns per split
 _NEG_INF = -1e30            # finite mask value: exp(s - m) underflows to 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # serving workers launch from several threads; the counters' += is a
@@ -113,9 +119,9 @@ def _check_cuda(name, q, tensors):
         raise ValueError(f"{name}: tensors are on {dev}, the current CUDA "
                          f"device is {torch.cuda.current_device()}")
     for tname, t, dtypes in tensors:
-        # q/k/v rows are read as vectors of H/32 elements per lane
-        align = t.element_size() * (
-            q.shape[-1] // 32 if tname in ("q", "k", "v") else 1)
+        # q is read, and k, v and the scales are bulk-copied, in 16-byte
+        # pieces from 16-byte boundaries
+        align = t.element_size() if tname in ("start", "end") else 16
         if t.device != dev:
             raise ValueError(f"{name}: {tname} is on {t.device}, q on {dev}")
         if t.dtype not in dtypes:
@@ -124,8 +130,8 @@ def _check_cuda(name, q, tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {tname} must be contiguous")
         if t.data_ptr() % align:
-            raise ValueError(f"{name}: {tname} must be {align}-byte "
-                             "aligned")
+            raise ValueError(f"{name}: {tname} must start on a "
+                             f"{align}-byte boundary")
 
 
 def _shapes(name, q, k, v):
@@ -148,15 +154,8 @@ def _shapes(name, q, k, v):
 
 
 def _launch(name, fn, q, ptrs, B, N, S, H):
-    BN = B * N
-    nsplit = -(-S // _BLOCK_K)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((BN, nsplit, H), **f32)
-    m_part = torch.empty((BN, nsplit), **f32)
-    l_part = torch.empty((BN, nsplit), **f32)
     out = torch.empty_like(q)
-    rc = fn(*ptrs, o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            out.data_ptr(), BN, N, S, H, _DTYPE_CODE[q.dtype],
+    rc = fn(*ptrs, out.data_ptr(), B * N, N, S, H, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "

@@ -9,7 +9,9 @@ windowed cases leave whole splits empty.  Tolerance: f32 atol 1e-6 —
 both sides compute the same f32 softmax attention and differ only in
 summation order (1.5e-7 measured at S=256).  The CUDA kernels
 themselves run only on the card (tests/test_torch_kernels_gpu.py and
-chip_smoke.py hold them against the same plain versions there).
+chip_smoke.py hold them against the same plain versions there);
+tests/test_torch_flash_decode_order.py emulates their order of
+arithmetic on the CPU.
 """
 import importlib
 
@@ -95,9 +97,10 @@ def test_flash_decode_quant_matches_jax_kernel(name):
 
 def test_row_without_valid_column_is_finite():
     """A row with no valid column at all: the finite -1e30 mask gives a
-    uniform softmax (never NaN) in both plain versions.  (The split
-    kernels return 0 there instead; a decode step never has such a row,
-    since its own column is always valid.)"""
+    uniform softmax (never NaN) in both plain versions.  (The kernels,
+    JAX's split kernel and the port's cluster kernel, return 0 there
+    instead; a decode step never has such a row, since its own column is
+    always valid.)"""
     q, k, v, _, _ = _case("full")
     lo = np.asarray([10, 0], np.int32)
     hi = np.asarray([10, 256], np.int32)

@@ -9,7 +9,7 @@ the card, where JAX is not installed (its conftest is skipped there)::
 
 Here, without a card, every test skips: a CUDA kernel has no CPU mode.
 Tolerances of the decode kernels (the flash-attention ones are stated at
-``FA_TOL``): f32 atol 1e-5 (summation order of the split merge); bf16
+``FA_TOL``): f32 atol 1e-5 (summation order of the cluster merge); bf16
 atol 1e-2 (the kernel rounds its output to bf16, the plain version runs
 in f32 on the same bf16 inputs: half a bf16 step at |out| < 4), and 2^-6
 of each (batch, head) row's largest |out| against the plain version run
@@ -32,12 +32,19 @@ CASES = {
     "empty_splits": (2, 2, 256, 64, [130, 0], [256, 40]),
     "single_column": (2, 2, 256, 64, [17, 0], [18, 256]),
     "h128": (1, 2, 256, 128, [5], [250]),
+    # S = 1024: four cluster ranks of 256 columns, each walking its span
+    # in chunks through the three-stage ring (4 to 64 chunks by dtype and
+    # head_dim); row 1's window leaves every rank but the last empty
     "h256_s1024": (2, 3, 1024, 256, [0, 700], [1024, 701]),
-    # cache lengths that are no multiple of the 64-column split: the last
-    # split masks its columns past S
+    "s1024": (2, 2, 1024, 64, [3, 990], [1021, 1024]),
+    # cache lengths that are no multiple of the 64-column span: one rank
+    # of 32 or 16 columns, four ranks of 50
     "s200": (2, 2, 200, 64, [3, 0], [200, 150]),
     "s32": (3, 2, 32, 64, [0, 20, 31], [32, 25, 32]),
     "s16_h128": (2, 2, 16, 128, [0, 9], [16, 10]),
+    # odd S: the int8 scales of a window start and end off a 4-row (16-
+    # byte) boundary of the scale tensor in every (batch, head) row
+    "s201_off4": (2, 3, 201, 64, [5, 1], [199, 198]),
 }
 
 
@@ -90,6 +97,71 @@ def test_kernels_match_plain_versions(cuda, name, dtype, atol):
                                                             lo, hi))
     assert (fd.flash_decode.launches - n0,
             fd.flash_decode_quant.launches - nq0) == (1, 1)
+
+
+@pytest.mark.parametrize("name", ["full", "s1024", "s201_off4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_repeat_bit_for_bit(cuda, name, dtype):
+    """Two launches on one input give the same bits: one writer per
+    output, sums in a fixed order (the cluster merges in rank order)."""
+    q, k, v, lo, hi = _case(name, cuda, dtype, seed=1)
+    k8, ks = quantize_kv_rows(k)
+    v8, vs = quantize_kv_rows(v)
+    runs = [(fd.flash_decode(q, k, v, lo, hi),
+             fd.flash_decode_quant(q, k8, v8, ks, vs, lo, hi))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_give_zero_for_a_row_without_valid_column(cuda, dtype):
+    """Every rank of row 0's clusters is empty: the kernels' l_tot == 0
+    guard gives 0 there (the plain versions give the uniform softmax of
+    the -1e30 mask); row 1 agrees with the plain version."""
+    q, k, v, _, _ = _case("full", cuda, dtype)
+    lo = torch.tensor([10, 0], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([10, 256], dtype=torch.int32, device=cuda)
+    k8, ks = quantize_kv_rows(k)
+    v8, vs = quantize_kv_rows(v)
+    for got, want in (
+            (fd.flash_decode(q, k, v, lo, hi),
+             fd.flash_decode_plain(q.float(), k.float(), v.float(), lo,
+                                   hi)),
+            (fd.flash_decode_quant(q, k8, v8, ks, vs, lo, hi),
+             fd.flash_decode_quant_plain(q.float(), k8, v8, ks, vs, lo,
+                                         hi))):
+        assert bool(torch.isfinite(got).all())
+        assert bool((got[0] == 0).all())
+        torch.testing.assert_close(got[1].float(), want[1], rtol=0,
+                                   atol=1e-5 if dtype == torch.float32
+                                   else 1e-2)
+
+
+def test_wrappers_raise_on_a_start_off_16_bytes(cuda):
+    """q, k, v and the scales are read in 16-byte pieces from 16-byte
+    boundaries: a contiguous tensor starting elsewhere raises (no copy,
+    no fallback)."""
+    q, k, v, lo, hi = _case("windowed", cuda)
+
+    def shifted(t, elems):
+        buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+        out = buf[elems:].view_as(t)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+
+    for args in ((shifted(q, 1), k, v), (q, shifted(k, 2), v),
+                 (q, k, shifted(v, 3))):
+        with pytest.raises(ValueError, match="16-byte"):
+            fd.flash_decode(*args, lo, hi)
+    k8, ks = quantize_kv_rows(k)
+    v8, vs = quantize_kv_rows(v)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd.flash_decode_quant(q, shifted(k8, 8), v8, ks, vs, lo, hi)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd.flash_decode_quant(q, k8, v8, ks, shifted(vs, 1), lo, hi)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

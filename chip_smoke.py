@@ -38,10 +38,27 @@ exits non-zero without printing a result:
               and kernel time by name; the decode kernel's time
               (decode_cluster_kernel) must be > 0 when the traced loop
               launched it;
-  6. e2e      kernel against plain end to end: f32 generate() with
+  6. slots    GPT-2 small served through the slot loop (Server with
+              FLAGS_decode_slots=8, FLAGS_prefill_chunk=64, one 768-column
+              ring, up to 96 new tokens), bf16 then int8 KV, on the churn
+              trace of 48 requests (every 5th prompt 96-127 tokens, every
+              4th request 96 new tokens): every served token is the
+              argmax of batch-1 generate() fed the row's own tokens, or
+              within 2^-6 of its max |logit| of the top (a near tie; the
+              rows equal to generate() are counted); no step is
+              built after warm-up; decode-kernel launches = 12 x steps by
+              the counters and by a trace of 20 replays of the captured
+              step; the captured step equals the eager step bit for bit at
+              C = 768 (planes, logits, tokens, finished), and both are
+              timed (host and device ms, idle share, kernels a step); the
+              slot server against the run-to-completion server on the
+              same trace in turns (tok/s, TTFT); a shared-prefix pass (6
+              requests, 256-token prefix, 48-token suffix) with the prefix
+              cache on and off: hit tokens > 0, rows as above, TTFT;
+  7. e2e      kernel against plain end to end: f32 generate() with
               FLAGS_use_flash_decode on and off gives equal tokens and
               last logits within 1e-4;
-  7. fa_kernels  the flash-attention kernels (forward B1, backward B2:
+  8. fa_kernels  the flash-attention kernels (forward B1, backward B2:
               dQ and dK/dV) against their plain versions in f32 and bf16
               over head_dims 64/128/256, lengths 128, 200, 256 and
               128 x 384, causal, and the three bias shapes; then at
@@ -50,7 +67,7 @@ exits non-zero without printing a result:
               checked in f32 and bf16 (in bf16 also twice: the same
               bits), and timed in bf16 beside the bound, the plain
               versions and SDPA;
-  8. train    BERT-base pretraining (random weights from --seed, f32
+  9. train    BERT-base pretraining (random weights from --seed, f32
               masters, bf16 compute, AdamW, dropout 0.1) at batch 64 x
               seq 128 with a ragged attention mask: 3 + 20 steps, seq/s,
               loss per step (finite, descending), launches of each
@@ -60,9 +77,9 @@ exits non-zero without printing a result:
               and off) and train_profile (one step under torch.profiler:
               the bf16 step runs the tensor-core kernels, and their share
               of the device-busy time);
-  9. batch_probe  one short prompt decoded alone and in an 8-row batch,
+ 10. batch_probe  one short prompt decoded alone and in an 8-row batch,
               module by module: no row may diverge;
- 10. fused_kernels  B5 stats/apply, B6 reduce/dx and B7 against their
+ 11. fused_kernels  B5 stats/apply, B6 reduce/dx and B7 against their
               plain versions at every distinct ResNet-50 conv+BN site
               (batch 2, 224 px), at M = 49, a 5x5/s2 site and odd widths,
               in f32 and bf16, relu on and off; the same checks in bf16
@@ -73,7 +90,7 @@ exits non-zero without printing a result:
               timed at batch 256 (stem, stage-1 3x3, the [802816, 256]
               epilogue), each on tensors checked first, beside the bound,
               the plain versions, cuDNN's conv and ATen's BN;
- 11. resnet   ResNet-50 NHWC training (random weights from --seed, f32
+ 12. resnet   ResNet-50 NHWC training (random weights from --seed, f32
               masters, bf16 compute, Momentum, CrossEntropyLoss) at batch
               256 x 224 px: 3 + 10 steps, img/s, loss per step (finite,
               descending), launches of B7, B5 apply and B6 = 53 sites x
@@ -133,7 +150,7 @@ BATCH_BUCKETS = (1, 8)
 SEQ_BUCKETS = (128, 256)
 MAX_LEN = 256
 MAX_NEW = 128
-REQUESTS = 16
+REQUESTS = 8
 LAYERS_CACHES = 12      # distinct caches rotated through when timing
 GRID = dict(batch_buckets=BATCH_BUCKETS, seq_buckets=SEQ_BUCKETS,
             max_len=MAX_LEN, max_new_tokens=MAX_NEW)
@@ -692,7 +709,359 @@ def phase_profile(torch, model, seed):
     log("profile", **out)
 
 
-# -- phase 6 -----------------------------------------------------------------
+# -- phase 6: the slot loop (continuous batching, captured step) -------------
+
+# the slot server: GPT-2 small, 8 slots, 64-token prefill chunks, one ring
+# of 768 columns, up to 96 new tokens (the JAX package's chip
+# configuration of its churn benchmark, bench.py:1170-1200)
+SLOTS, CHUNK, SLOT_CACHE, SLOT_MAX_NEW = 8, 64, 768, 96
+SLOT_GRID = dict(batch_buckets=(1,), seq_buckets=(128, SLOT_CACHE),
+                 max_len=SLOT_CACHE, max_new_tokens=SLOT_MAX_NEW)
+# in slot mode a worker thread only waits on its rows' futures, so the
+# workers bound the rows in flight: two per slot, one request each
+SLOT_WORKERS = 2 * SLOTS
+CHURN_REQUESTS = 48
+# every token a slot row serves is held against batch-1 generate()'s
+# geometry (its prefill bucket, its cache, its columns), fed the row's
+# own tokens: the token must be the oracle's argmax or lie within this
+# share of the oracle's largest |logit| of its top logit (a near tie).
+# The chunked prefill and the 768-column ring put a row at other shapes
+# and columns than generate() does, so its bf16 logits move by a rounding
+# step, and with random weights a step flips a tie in about a quarter of
+# the 48 rows (on an H100 at --seed 0: 12 rows, gaps 0 to 0.013 of
+# max|logit|)
+SLOT_TIE_RTOL = BF16_ROW_RTOL
+# the shared-prefix pass (bench.py:1322-1323): 6 requests, a 256-token
+# prefix and a 48-token suffix each
+PREFIX_LEN, SUFFIX_LEN, PREFIX_REQUESTS, PREFIX_MAX_NEW = 256, 48, 6, 16
+
+
+def _churn(seed, vocab, n=CHURN_REQUESTS):
+    """The churn trace: every 5th prompt 96-127 tokens, the others 8-23;
+    every 4th request wants 96 new tokens, the others 2-7."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for k in range(n):
+        lp = int(rng.randint(96, 128)) if k % 5 == 0 \
+            else int(rng.randint(8, 24))
+        mn = SLOT_MAX_NEW if k % 4 == 1 else int(rng.randint(2, 8))
+        out.append((rng.randint(1, vocab, lp).astype(np.int32), mn))
+    return out
+
+
+def _check_rows(torch, model, oracle, reqs, served, where):
+    """Hold every served token against batch-1 generate() fed the row's
+    own tokens (teacher forcing at generate()'s prefill bucket and
+    cache): each is the oracle's argmax, or within SLOT_TIE_RTOL of the
+    oracle's max |logit| below its top logit.  Returns the rows equal to
+    their batch-1 generate() and the near ties taken (row, token, gap
+    share)."""
+    ties, equal = [], 0
+    for i, ((p, mn), got) in enumerate(zip(reqs, served)):
+        check(got.shape == (mn,), f"{where}: row {i} shape {got.shape}")
+        P = oracle.prefill_bucket(p.size)
+        ids, start = oracle.pack_prompts([p], P)
+        cache, logits = oracle.prefill(ids, start, oracle.cache_bucket(P,
+                                                                       mn))
+        start = torch.as_tensor(start, device="cuda")
+        fed = torch.as_tensor(got, device="cuda").reshape(mn, 1, 1)
+        rows = []
+        with torch.inference_mode():
+            for t in range(mn):
+                lg = logits[0]
+                rows.append(torch.stack([lg.max(), lg[fed[t, 0, 0]],
+                                         lg.abs().max(),
+                                         lg.argmax().float()]))
+                if t + 1 < mn:
+                    nl, cache = model.forward_cached(fed[t], cache, P + t,
+                                                     start)
+                    logits = nl[:, 0].float()
+        stats = torch.stack(rows).cpu().numpy()
+        row_ties = 0
+        for t, (top, mine, scale, arg) in enumerate(stats):
+            if int(arg) == int(got[t]):
+                continue
+            gap = float(top - mine)
+            check(gap <= SLOT_TIE_RTOL * scale,
+                  f"{where}: row {i} (prompt {p.size}) token {t} = "
+                  f"{int(got[t])} lies {gap} below the oracle's top logit "
+                  f"(token {int(arg)}), more than 2^-6 x {scale}")
+            ties.append((i, t, gap / float(scale)))
+            row_ties += 1
+        equal += row_ties == 0
+    return equal, ties
+
+
+def _tie_summary(ties):
+    """The near ties _check_rows took: how many, in which rows, and the
+    largest gap as a share of the oracle's max |logit|."""
+    return {"near_tie_tokens": len(ties),
+            "near_tie_rows": sorted({i for i, _, _ in ties}),
+            "near_tie_max_gap_share": round(max((g for _, _, g in ties),
+                                                default=0.0), 5)}
+
+
+def _slot_server(torch, model, kv, prefix=False):
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework import flags
+    flags.set_flags({"FLAGS_kv_cache_dtype": kv, "FLAGS_decode_slots": SLOTS,
+                     "FLAGS_prefill_chunk": CHUNK,
+                     "FLAGS_prefix_cache": prefix})
+    srv = serving.Server(serving.ServingConfig(workers=SLOT_WORKERS))
+    srv.register_decode("gpt2", model, **SLOT_GRID)
+    srv.start()
+    flags.set_flags({"FLAGS_decode_slots": 0, "FLAGS_prefix_cache": False})
+    return srv
+
+
+def _serve_churn(torch, srv, reqs):
+    """Submit the whole trace at once; served rows, seconds, stats."""
+    t0 = time.perf_counter()
+    futs = [srv.submit_decode("gpt2", [p], max_new_tokens=mn, timeout=60)
+            for p, mn in reqs]
+    served = [f.result(timeout=600)[0][0] for f in futs]
+    dt = time.perf_counter() - t0
+    st = srv.stats("gpt2")
+    tokens = sum(mn for _, mn in reqs)
+    return served, {"serve_s": round(dt, 3),
+                    "tok_per_s": round(tokens / dt, 1), "stats": st}
+
+
+def _slot_turn(torch, model, reqs, kv="bf16"):
+    srv = _slot_server(torch, model, kv)
+    try:
+        _, out = _serve_churn(torch, srv, reqs)
+    finally:
+        srv.stop()
+    sl = out["stats"]["slot_loop"]
+    return {"tok_per_s": out["tok_per_s"], "ttft_p50_ms": sl["ttft_p50_ms"],
+            "ttft_p99_ms": sl["ttft_p99_ms"]}
+
+
+def _rtc_turn(torch, model, reqs):
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework import flags
+    flags.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
+    srv = serving.Server()
+    srv.register_decode("gpt2", model, **GRID)
+    srv.start()
+    try:
+        _, out = _serve_churn(torch, srv, reqs)
+    finally:
+        srv.stop()
+    st = out["stats"]
+    return {"tok_per_s": out["tok_per_s"],
+            "ttft_p50_ms": round(st["ttft_p50_ms"], 3),
+            "ttft_p99_ms": round(st["ttft_p99_ms"], 3)}
+
+
+def _step_state(S, C, seed):
+    """Host vectors of a full slot step: every row active at columns
+    [start, pos]."""
+    rng = np.random.RandomState(seed)
+    pos = C - 40
+    return (rng.randint(0, pos - 200, S).astype(np.int32),
+            np.zeros(S, bool), np.ones(S, bool), pos)
+
+
+def _step_compare(torch, gen, kv, steps=5):
+    """Rule (ii): the captured step against the same step run eagerly,
+    from one state, at the slot cache: planes, logits, tokens, finished
+    bit-equal; the host rewrites the per-row vectors between steps."""
+    from paddle_tpu_torch.text.graphs import SlotStep
+    cap = gen.step_exec(SLOTS, SLOT_CACHE)
+    eager = SlotStep(gen, SLOTS, SLOT_CACHE, -1)
+    check(cap.captured, "slots: step_exec on CUDA returned an uncaptured "
+          "step")
+    g = torch.Generator(device="cuda").manual_seed(SLOT_CACHE)
+    with torch.inference_mode():
+        for c in cap.cache:
+            for p in c:
+                if p.dtype == torch.int8:
+                    p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                          device="cuda"))
+                elif p.shape[-1] == 1:
+                    p.copy_(torch.rand(p.shape, generator=g, device="cuda")
+                            * 0.02 + 1e-3)
+                else:
+                    p.copy_(torch.randn(p.shape, generator=g, device="cuda"))
+        cap.logits.copy_(torch.randn(cap.logits.shape, generator=g,
+                                     device="cuda"))
+    eager.load_state(cap)
+    start, fin, active, pos = _step_state(SLOTS, SLOT_CACHE, 1)
+    rng = np.random.RandomState(2)
+    fc = fe = fin
+    for i in range(steps):
+        active = rng.rand(SLOTS) < 0.8
+        start = rng.randint(0, pos + i - 100, SLOTS).astype(np.int32)
+        fc, tc = cap(start, fc, active, pos + i)
+        fe, te = eager(start, fe, active, pos + i)
+        same = (np.array_equal(tc, te) and np.array_equal(fc, fe)
+                and torch.equal(cap.logits, eager.logits)
+                and all(torch.equal(x, y) for a, b in zip(cap.cache,
+                                                          eager.cache)
+                        for x, y in zip(a, b)))
+        check(same, f"slots kv={kv}: the captured step differs from the "
+              f"eager step at step {i}")
+    return cap, eager
+
+
+def _step_profile(torch, step, calls=20):
+    """Host ms per call (no profiler), then device busy ms, kernels and
+    decode-kernel launches per call under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start, fin, active, pos = _step_state(step.S, step.C, 3)
+    step(start, fin, active, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        step(start, fin, active, pos + (i % 8))
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            step(start, fin, active, pos + (i % 8))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    fd_events = [e for e in kernels if "decode_cluster_kernel" in e.key]
+    out = {"host_ms": round(host_ms, 4)}
+    if busy <= 0:
+        out["device_ms"] = "not measured (no CUDA events)"
+        return out, None
+    out.update(device_ms=round(busy, 4),
+               idle_share=round(max(0.0, 1 - busy / host_ms), 4),
+               kernels_per_step=round(sum(e.count for e in kernels)
+                                      / calls, 2),
+               decode_kernel_launches=sum(e.count for e in fd_events),
+               decode_kernel_ms=round(sum(e.self_device_time_total
+                                          for e in fd_events) / 1e3, 4),
+               top_kernels=[{"name": e.key[:70],
+                             "calls_per_step": round(e.count / calls, 2),
+                             "ms_per_step": round(e.self_device_time_total
+                                                  / 1e3 / calls, 4)}
+                            for e in sorted(kernels, key=lambda e:
+                                            -e.self_device_time_total)[:6]])
+    return out, fd_events
+
+
+def phase_slots(torch, model, seed):
+    """Continuous-batching decode through the slot loop, bf16 then int8
+    KV: the churn trace served (rows against batch-1 generate(), no step
+    built after warm-up, decode-kernel launches = 12 x steps); the
+    captured step against the eager one; 20 replays traced; slot server
+    against run-to-completion server in turns; the shared-prefix pass."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.text.generation import Generator
+    layers = model.config.num_layers
+    reqs = _churn(seed + 7, model.config.vocab_size)
+    oracle = Generator(model, seq_buckets=(128, 256, 512, SLOT_CACHE),
+                       max_len=SLOT_CACHE)
+    snap = flags.flags_snapshot()
+    out = {}
+    try:
+        for kv in ("bf16", "int8"):
+            live = "flash_decode_quant" if kv == "int8" else "flash_decode"
+            srv = _slot_server(torch, model, kv)
+            try:
+                rt = srv._models["gpt2"]
+                built = dict(rt.gen.counters)
+                # the path's run: counts read from 0 just before it
+                fd.launch_counts(reset=True)
+                served, run = _serve_churn(torch, srv, reqs)
+                counts = fd.launch_counts()
+                check(dict(rt.gen.counters) == built,
+                      f"slots kv={kv}: steps built after warm-up: "
+                      f"{built} -> {rt.gen.counters}")
+                sl = run["stats"]["slot_loop"]
+                want = layers * sl["steps"]
+                check(counts[live] == want and sum(counts.values()) == want,
+                      f"slots kv={kv}: launches {counts}, want {live}="
+                      f"{want} ({layers} layers x {sl['steps']} steps)")
+                check(sl["joined"] == sl["retired"] == len(reqs),
+                      f"slots kv={kv}: {sl}")
+                step = rt._loop._step
+                # (iv) by a trace of 20 replays
+                prof, fd_events = _step_profile(torch, step)
+                if fd_events is not None:
+                    check(prof["decode_kernel_launches"] == layers * 20
+                          and prof["decode_kernel_ms"] > 0,
+                          f"slots kv={kv}: traced replays {prof}")
+            finally:
+                srv.stop()
+            equal, ties = _check_rows(torch, model, oracle, reqs, served,
+                                      f"slots kv={kv}")
+            cap, eager = _step_compare(torch, rt.gen, kv)
+            eager_prof, _ = _step_profile(torch, eager)
+            out[kv] = {"launches": counts[live], "steps": sl["steps"],
+                       "chunks": sl["chunks"], "tok_per_s": run["tok_per_s"],
+                       "ttft_p50_ms": sl["ttft_p50_ms"],
+                       "ttft_p99_ms": sl["ttft_p99_ms"],
+                       "occupancy_mean": round(
+                           sl["emitted_tokens"] / (SLOTS * sl["steps"]), 4),
+                       "rows_equal_batch1_generate":
+                           f"{equal}/{len(reqs)}",
+                       "tokens_checked": sum(mn for _, mn in reqs),
+                       **_tie_summary(ties),
+                       "captured_step": prof, "eager_step": eager_prof,
+                       "captured_equals_eager": True}
+            log("slots", kv_cache=kv, requests=len(reqs), slots=SLOTS,
+                chunk=CHUNK, cache=SLOT_CACHE, **out[kv])
+            del cap, eager, rt, srv
+        # (v) the slot server against the run-to-completion server, the
+        # same trace in turns
+        turns = {"slot": [], "run_to_completion": []}
+        for kind in ("slot", "run_to_completion", "slot",
+                     "run_to_completion"):
+            turns[kind].append(_slot_turn(torch, model, reqs)
+                               if kind == "slot"
+                               else _rtc_turn(torch, model, reqs))
+        log("slots", kv_cache="bf16", turns=turns)
+        out["turns"] = turns
+        # (vi) the shared-prefix pass, prefix cache on and off
+        rng = np.random.RandomState(seed + 11)
+        prefix = rng.randint(1, model.config.vocab_size, PREFIX_LEN)
+        prompts = [np.concatenate([prefix, rng.randint(
+            1, model.config.vocab_size, SUFFIX_LEN)]).astype(np.int32)
+            for _ in range(PREFIX_REQUESTS + 1)]
+        preqs = [(p, PREFIX_MAX_NEW) for p in prompts[1:]]
+        pout = {}
+        for on in (True, False):
+            srv = _slot_server(torch, model, "bf16", prefix=on)
+            try:
+                loop = srv._models["gpt2"]._loop
+                srv.run_decode("gpt2", [prompts[0]],
+                               max_new_tokens=PREFIX_MAX_NEW)   # publishes
+                loop.reset_stats()
+                served = [srv.run_decode("gpt2", [p], max_new_tokens=mn)
+                          [0][0] for p, mn in preqs]
+                sl = loop.stats()
+            finally:
+                srv.stop()
+            equal, ties = _check_rows(
+                torch, model, oracle, preqs, served,
+                f"prefix cache {'on' if on else 'off'}")
+            pout["on" if on else "off"] = {
+                "prefix_hit_tokens": sl["prefix_hit_tokens"],
+                "ttft_p50_ms": sl["ttft_p50_ms"],
+                "ttft_p99_ms": sl["ttft_p99_ms"], "chunks": sl["chunks"],
+                "rows_equal_batch1_generate":
+                    f"{equal}/{len(preqs)}", **_tie_summary(ties)}
+        check(pout["on"]["prefix_hit_tokens"] > 0
+              and pout["off"]["prefix_hit_tokens"] == 0,
+              f"prefix cache: hit tokens {pout}")
+        log("slots", shared_prefix=PREFIX_LEN, suffix=SUFFIX_LEN,
+            requests=PREFIX_REQUESTS, **pout)
+        out["prefix"] = pout
+    finally:
+        flags.flags_restore(snap)
+    return out
+
+
+# -- phase 7 -----------------------------------------------------------------
 
 def phase_e2e(torch, seed):
     from paddle_tpu_torch.framework import flags
@@ -734,7 +1103,7 @@ def phase_e2e(torch, seed):
         tokens_equal=True, last_logits_max_abs_err=err, atol=1e-4)
 
 
-# -- phase 7: flash attention kernels (B1, B2) -------------------------------
+# -- phase 8: flash attention kernels (B1, B2) -------------------------------
 
 # (B, N, Sq, Sk, H, causal, bias): H 64/128/256; S 128, 256 and 200 (off
 # the 64-row tile); causal with Sq = Sk and with Sq = 128 < Sk = 384; the
@@ -983,7 +1352,7 @@ def phase_fa_kernels(torch, seed):
     return worst, timings[True]
 
 
-# -- phase 8: BERT-base training ---------------------------------------------
+# -- phase 9: BERT-base training ---------------------------------------------
 
 TRAIN = dict(batch=64, seq=128, n_pred=19, warmup=3, steps=20, lr=1e-4,
              weight_decay=0.01)
@@ -1203,7 +1572,7 @@ def phase_train_profile(torch, step, batch):
     log("train_profile", **out)
 
 
-# -- phase 9: batch invariance probe -----------------------------------------
+# -- phase 10: batch invariance probe ----------------------------------------
 
 def phase_batch_probe(torch, model, seed, decode_steps=4):
     """Batch invariance of the serving path.  One prompt prefilled and
@@ -1280,7 +1649,7 @@ def phase_batch_probe(torch, model, seed, decode_steps=4):
         logits_max_abs_diff_per_call=logits_diff)
 
 
-# -- phase 10: fused batch-norm and conv kernels (B5, B6, B7) ----------------
+# -- phase 11: fused batch-norm and conv kernels (B5, B6, B7) ----------------
 
 # ResNet-50's stages: (planes, blocks, stride of the first block)
 R50_STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
@@ -1609,7 +1978,7 @@ def phase_fused_kernels(torch, seed):
     return {k: max(worst[k], worst_main[k]) for k in worst}, t
 
 
-# -- phase 11: ResNet-50 training --------------------------------------------
+# -- phase 12: ResNet-50 training --------------------------------------------
 
 # bench.py's ResNet-50 step at lr 0.01 where bench.py has 0.1: on the
 # repeated batch of random images lr 0.1 lowers the loss for 10 steps and
@@ -1967,8 +2336,9 @@ def main(argv=None):
     worst, timing = phase_kernels(torch, args.seed)
     fa_worst, fa_timing = phase_fa_kernels(torch, args.seed)
     model = _gpt2(torch, args.seed, torch.bfloat16)
-    served = phase_serving(torch, model, args.seed)
+    phase_serving(torch, model, args.seed)
     phase_profile(torch, model, args.seed)
+    slots = phase_slots(torch, model, args.seed)
     phase_batch_probe(torch, model, args.seed)
     del model
     phase_e2e(torch, args.seed)
@@ -2007,7 +2377,7 @@ def main(argv=None):
     kernels = [
         {"name": "flash_decode", "route": "cuda", "source": src,
          "replaces": "paddle_tpu/ops/pallas/flash_decode.py:68",
-         "launches": served["bf16"]["launches"]["flash_decode"],
+         "launches": slots["bf16"]["launches"],
          "max_abs_err": worst["flash_decode"],
          "ms": timing["flash_decode"],
          "plain_ms": timing["flash_decode_plain"],
@@ -2016,7 +2386,7 @@ def main(argv=None):
          "library_ms": timing["flash_decode_library"]},
         {"name": "flash_decode_quant", "route": "cuda", "source": src,
          "replaces": "paddle_tpu/ops/pallas/flash_decode.py:159",
-         "launches": served["int8"]["launches"]["flash_decode_quant"],
+         "launches": slots["int8"]["launches"],
          "max_abs_err": worst["flash_decode_quant"],
          "ms": timing["flash_decode_quant"],
          "plain_ms": timing["flash_decode_quant_plain"],

@@ -137,6 +137,35 @@ define_flag("kv_cache_dtype",
             "scale planes, dequantized inside the flash-decode kernel).",
             validator=lambda v: str(v).lower() in ("bf16", "int8"))
 
+define_flag("decode_slots",
+            int(os.environ.get("PADDLE_TPU_DECODE_SLOTS", "0") or 0),
+            "Slot count S of the iteration-level continuous-batching "
+            "decode loop (serving/slots.py): one single-token step per "
+            "(S, cache bucket), captured as one CUDA graph on the card, in "
+            "which requests occupy slots, finished rows retire at token "
+            "boundaries and queued requests join by restarting a row's "
+            "validity window.  0 (default) keeps the run-to-completion "
+            "decode path.  Seeded by PADDLE_TPU_DECODE_SLOTS.",
+            validator=lambda v: 0 <= int(v) <= 256)
+define_flag("prefill_chunk",
+            int(os.environ.get("PADDLE_TPU_PREFILL_CHUNK", "16") or 16),
+            "Chunk width T of the chunked prefill under the slot decode "
+            "loop (FLAGS_decode_slots > 0): a joining prompt is split into "
+            "ceil(len/T) LEFT-padded chunks interleaved with decode steps. "
+            " Seeded by PADDLE_TPU_PREFILL_CHUNK.",
+            validator=lambda v: 1 <= int(v) <= 4096)
+define_flag("prefix_cache", False,
+            "Radix-trie prefix KV cache under the slot decode loop "
+            "(serving/prefix_cache.py): activated rows publish their "
+            "prompt's T-column cache blocks into a token-prefix trie, and a "
+            "joining request restores the longest cached prefix, "
+            "chunk-prefilling only the rest.  Needs FLAGS_decode_slots > 0.")
+define_flag("prefix_cache_hbm_mb", 256.0,
+            "Device-memory budget (MiB) of the prefix KV cache; "
+            "least-recently-used unpinned leaf blocks evict until the "
+            "cache fits.  0 = unbounded.",
+            validator=lambda v: float(v) >= 0.0)
+
 # ---- Kernels and training -------------------------------------------------
 define_flag("use_pallas_kernels", True,
             "Route non-cached attention on CUDA tensors through the flash-"

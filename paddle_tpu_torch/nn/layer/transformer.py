@@ -40,7 +40,11 @@ def ring_block_write(plane, new, pos, axis=None):
     it).  Columns ``(pos + arange(T)) % C`` receive the block, so a block
     crossing the ring boundary wraps to column 0; a block that does not
     wrap (every decode step's write) is one contiguous copy, without the
-    launches that building the index would cost.  Shapes: ``plane [...,
+    launches that building the index would cost.  ``pos`` may also be a
+    device tensor: a 0-d one (the position) or a 1-D int64 one of ``T``
+    columns (the ring index, see ``ring_index``); then the columns are
+    written through the index and nothing is read back to the host, so
+    the write can be captured in a CUDA graph.  Shapes: ``plane [...,
     C, L]``, ``new [..., T, L]``; ``axis`` defaults to ``ndim - 2``.
     """
     ax = plane.ndim - 2 if axis is None else int(axis)
@@ -48,14 +52,25 @@ def ring_block_write(plane, new, pos, axis=None):
     if T > C:
         raise ValueError(
             f"ring block of {T} tokens cannot fit a cache of length {C}")
-    pos = int(pos) % C
     new = new.to(plane.dtype)
+    if torch.is_tensor(pos):
+        idx = pos if pos.ndim == 1 else ring_index(pos, T, C)
+        plane.index_copy_(ax, idx, new)
+        return plane
+    pos = int(pos) % C
     if pos + T <= C:
         plane.narrow(ax, pos, T).copy_(new)
     else:
         idx = (pos + torch.arange(T, device=plane.device)) % C
         plane.index_copy_(ax, idx, new)
     return plane
+
+
+def ring_index(pos, T, C):
+    """The ring columns ``(pos + arange(T)) % C`` of a block written at
+    the 0-d device tensor ``pos``, as the int64 index ``index_copy_``
+    takes, built on ``pos``'s device."""
+    return (pos.long() + torch.arange(T, device=pos.device)) % C
 
 
 def quantize_kv_rows(x):

@@ -221,3 +221,24 @@ def flash_decode_quant(q, k, v, k_scale, v_scale, start=None, end=None):
 
 
 flash_decode_quant.launches = 0
+
+
+def launch_counts(reset=False):
+    """Every launch count of this module (and reset them to 0)."""
+    fns = (flash_decode, flash_decode_quant)
+    with _COUNT_LOCK:
+        out = {f.__name__: f.launches for f in fns}
+        if reset:
+            for f in fns:
+                f.launches = 0
+    return out
+
+
+def add_launches(counts):
+    """Add ``{name: n}`` to the launch counts.  A captured CUDA graph
+    launches its kernels without running their wrappers: its owner
+    (``text/graphs.py``) takes back what the wrappers counted while it
+    was captured, and adds it on every replay."""
+    with _COUNT_LOCK:
+        for f in (flash_decode, flash_decode_quant):
+            f.launches += int(counts.get(f.__name__, 0))

@@ -1,7 +1,8 @@
 """Batched autoregressive decode through the serving engine.
 
 Counterpart of ``paddle_tpu/serving/decode.py`` (``DecodeModelSpec``,
-``DecodeRequest`` and the run-to-completion path of ``_DecodeRuntime``).
+``DecodeRequest`` and ``_DecodeRuntime``: the run-to-completion path and,
+under ``FLAGS_decode_slots > 0``, the slot loop of serving/slots.py).
 Request rows pack into the batch-bucket ladder; prompt lengths pad
 (left) to the FLAGS_decode_buckets sequence ladder; the KV-cache length
 rounds up to the smallest bucket holding prompt-bucket + max_new_tokens.
@@ -81,6 +82,8 @@ class _DecodeRuntime:
         self.admitted = False
         self.gen = None
         self._warmed = set()                # {(B, P, C)}
+        self._loop = None                   # the SlotLoop in slot mode
+        self.prefix_cache = None
         self.latency = LatencyWindow()
         self.ttft = LatencyWindow()
         self.rate = RateMeter()
@@ -116,11 +119,56 @@ class _DecodeRuntime:
                 f"room for max_new_tokens={self.steps} under "
                 f"max_len={self.gen._max_len}")
         self.max_prompt = max(p for p, _ in self._plan)
+        # iteration-level slot mode (FLAGS_decode_slots): one step loop
+        # at the LARGEST cache bucket replaces the run-to-completion
+        # grid; prompts chunk to FLAGS_prefill_chunk instead of
+        # prefill-bucketing
+        self.slots = int(_flags.flag("decode_slots"))
+        self.chunk_width = int(_flags.flag("prefill_chunk"))
+        if self.slots:
+            self._slot_cache = max(c for _, c in self._plan)
+            span = self._slot_cache - self.steps
+            T = self.chunk_width
+            # largest admissible prompt: its chunk-padded span plus the
+            # full token budget must fit ONE ring session
+            self.max_prompt = (span // T) * T
+            if self.max_prompt < 1:
+                raise PreconditionNotMetError(
+                    f"decode model {self.name!r}: slot cache "
+                    f"{self._slot_cache} leaves no room for a prompt "
+                    f"chunk (chunk={T}, max_new_tokens={self.steps})")
+
+    def _warmup_slots(self):
+        """Slot-mode warm-up: build (on the card: capture) the step and
+        the chunk program, the prefix cache under FLAGS_prefix_cache, and
+        the SlotLoop; run one dummy request end to end so every dispatch
+        path is warm; then zero the loop's accounting and drop the
+        dummy's prefix blocks."""
+        from .prefix_cache import PrefixCache
+        from .slots import SlotLoop
+        S, C, T = self.slots, self._slot_cache, self.chunk_width
+        if bool(_flags.flag("prefix_cache")):
+            self.prefix_cache = PrefixCache(
+                T, self.gen.block_nbytes(T),
+                hbm_budget_mb=float(_flags.flag("prefix_cache_hbm_mb")))
+        self._loop = SlotLoop(self.gen, S, C, T,
+                              eos_token_id=self.spec.eos_token_id,
+                              model=self.name,
+                              prefix_cache=self.prefix_cache)
+        self._loop.submit(np.zeros((1,), np.int32), 1).result(timeout=600)
+        self._loop.reset_stats()
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        self.admitted = True
 
     def warmup(self):
         """Run every (batch-bucket x prefill-bucket) pair once on zeros:
         prefill, then the full decode length.  These are the shapes
-        steady-state traffic may use."""
+        steady-state traffic may use.  In slot mode, build and warm the
+        slot loop instead."""
+        if self.slots:
+            self._warmup_slots()
+            return
         eos = self.spec.eos_token_id
         for B in self.ladder:
             for P, C in self._plan:
@@ -162,7 +210,12 @@ class _DecodeRuntime:
     def execute(self, batch):
         """Run one packed batch through prefill + decode; returns
         generated tokens [bucket, steps] as numpy (padding rows included
-        — the worker slices per request)."""
+        — the worker slices per request).  In slot mode the rows go
+        through the slot loop instead: each row is its own slot tenancy
+        (joins at a token boundary, retires when done), and the worker's
+        [bucket, steps] contract is assembled from the per-row futures."""
+        if self._loop is not None:
+            return self._execute_slots(batch)
         prompts = [p for r in batch.requests for p in r.prompts]
         # pad rows up to the batch bucket with 1-token dummy prompts
         prompts += [np.zeros((1,), np.int32)] * (batch.bucket - batch.rows)
@@ -189,3 +242,30 @@ class _DecodeRuntime:
         toks = self.gen.decode(cache, logits0, start, P, self.steps,
                                self.spec.eos_token_id)
         return toks.cpu().numpy()
+
+    def _execute_slots(self, batch):
+        futs = [self._loop.submit(p, r.max_new)
+                for r in batch.requests for p in r.prompts]
+        out = np.zeros((batch.bucket, self.steps), np.int32)
+        row = 0
+        for r in batch.requests:
+            err = None
+            for _ in range(len(r.prompts)):
+                try:
+                    got = futs[row].result(timeout=600)
+                    out[row, :got.size] = got
+                except Exception as e:   # noqa: BLE001 — per-request
+                    err = e              # isolation: one row's failure
+                row += 1                 # must not fail its batch-mates
+            if err is not None and not r.future.done():
+                r.future.set_exception(err)
+        return out
+
+    def slot_signals(self):
+        """Token-level slot accounting for Server.signals(), or None on
+        the run-to-completion path."""
+        return None if self._loop is None else self._loop.signals()
+
+    def close(self):
+        if self._loop is not None:
+            self._loop.close()

@@ -2,12 +2,14 @@
 
 Counterpart of the decode half of ``paddle_tpu/serving/server.py``
 (``ServingConfig`` and ``Server`` with ``register_decode``, ``start``,
-``submit_decode``, ``run_decode``, ``stop`` and ``stats``).  Requests
-stream into a bounded queue; a scheduler thread packs them FIFO into
-batch buckets; worker threads run each batch's prefill and decode loop
-on the server's device and resolve the requests' futures with their own
-rows.  ``start`` warms every (batch bucket x prefill bucket) pair before
-a single request is admitted.
+``submit_decode``, ``run_decode``, ``stop``, ``stats`` and
+``signals``).  Requests stream into a bounded queue; a scheduler
+thread packs them FIFO into batch buckets; worker threads run each
+batch's prefill and decode loop on the server's device and resolve the
+requests' futures with their own rows.  ``start`` warms every (batch bucket x prefill bucket) pair before
+a single request is admitted.  Under ``FLAGS_decode_slots > 0`` the
+workers hand each row to the model's slot loop (serving/slots.py)
+instead, which admits and retires rows at token boundaries.
 """
 from __future__ import annotations
 
@@ -52,6 +54,9 @@ class _Worker(threading.Thread):
         now = time.perf_counter()
         off = 0
         for r in batch.requests:
+            if r.future.done():         # a slot row failed it already
+                off += r.rows
+                continue
             r.future.set_result([toks[off:off + r.rows, :r.max_new]])
             rt.latency.observe(now - r.t_enqueue)
             if r.t_first is not None:
@@ -198,6 +203,8 @@ class Server:
         self._scheduler.join(timeout=30)
         for w in self._workers:
             w.join(timeout=30)
+        for rt in self._models.values():
+            rt.close()                  # the slot loops' driver threads
         self._stopped = True
 
     def __enter__(self):
@@ -278,4 +285,39 @@ class Server:
                                    (rows + c["padded_rows"]), 4),
             "queue_depth": self._queue.depth() if self._queue else 0,
             "steady_compiles": c["steady_compiles"],
+            **({"slot_loop": rt._loop.stats()}
+               if rt._loop is not None else {}),
         }
+
+    def signals(self) -> dict:
+        """This process's load snapshot: queue depth, average batch
+        occupancy and steady-state cold batches summed over models, and,
+        for slot-mode models (FLAGS_decode_slots), the token-level slot
+        accounting: occupancy is the max over them, the join/retire
+        counters and prefix-cache sizes sum."""
+        out = {"queue_depth": self._queue.depth() if self._queue else 0}
+        rows = batches = steady = 0
+        for rt in self._models.values():
+            with rt._mlock:
+                c = dict(rt.counters)
+            rows += c["rows"]
+            batches += c["batches"]
+            steady += c["steady_compiles"]
+        out["batch_occupancy_rows"] = round(rows / batches, 3) \
+            if batches else 0.0
+        out["steady_compiles"] = steady
+        slot = [s for s in (rt.slot_signals()
+                            for rt in self._models.values())
+                if s is not None]
+        if slot:
+            out["decode_slot_occupancy_ratio"] = max(
+                s["decode_slot_occupancy_ratio"] for s in slot)
+            out["slots_joined_total"] = sum(
+                s["slots_joined_total"] for s in slot)
+            out["slots_retired_total"] = sum(
+                s["slots_retired_total"] for s in slot)
+            for k in ("prefix_cache_blocks", "prefix_cache_bytes"):
+                if any(k in s for s in slot):
+                    out[k] = sum(s.get(k, 0) for s in slot)
+        out["models"] = self.models()
+        return out

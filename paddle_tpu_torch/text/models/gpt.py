@@ -18,7 +18,7 @@ from ...nn.functional.common import batch_invariant_linear
 from ...nn.functional.loss import cross_entropy
 from ...nn.layer.common import Dropout
 from ...nn.layer.transformer import (TransformerEncoder,
-                                     TransformerEncoderLayer)
+                                     TransformerEncoderLayer, ring_index)
 
 _NEG_INF = -1e30    # finite mask value: see nn/functional/attention.py
 _HEAD_ALIGN = 128   # LM-head rows are padded to a multiple of this
@@ -131,17 +131,26 @@ class GPTModel(nn.Module):
         """One incremental step over the ring cache.
 
         ``input_ids`` [B, T]: the LEFT-padded prompt at prefill, one token
-        per row at decode; ``cache_position`` (int) is the cache column
-        the first new token writes; ``start_positions`` int32 [B] is each
-        row's first valid cache column.  Token positions and the additive
-        validity+causality mask derive from those two.  The cache planes
-        are updated in place.  Returns (logits [B, T, V], cache).
+        per row at decode; ``cache_position`` is the cache column the
+        first new token writes, an int or a 0-d int32 tensor on the
+        model's device; ``start_positions`` int32 [B] is each row's first
+        valid cache column.  Token positions and the additive
+        validity+causality mask derive from those two.  With a tensor
+        position nothing is read back to the host (the slot loop's step
+        is captured in a CUDA graph, ``text/graphs.py``) and the result
+        is the int path's, bit for bit.  The cache planes are updated in
+        place.  Returns (logits [B, T, V], cache).
         """
         b, t = input_ids.shape
         dev = input_ids.device
         C = cache[0].k.shape[2]
-        pos = int(cache_position)
         start = start_positions
+        if torch.is_tensor(cache_position):
+            pos = cache_position.to(torch.int32)
+            ring = ring_index(pos, t, C)
+        else:
+            pos = int(cache_position)
+            ring = pos % C
         row = pos + torch.arange(t, dtype=torch.int32, device=dev)
         pos_ids = (row[None, :] - start[:, None]).clamp(
             0, self.config.max_position_embeddings - 1)
@@ -151,8 +160,9 @@ class GPTModel(nn.Module):
             # decode step: validity is the contiguous [start, pos+1)
             # window; the kernel takes it as is, and the plain path
             # builds its mask from it only when it runs
-            window = (start, torch.full((b,), pos + 1, dtype=torch.int32,
-                                        device=dev))
+            end = (pos + 1).expand(b).contiguous() if torch.is_tensor(pos) \
+                else torch.full((b,), pos + 1, dtype=torch.int32, device=dev)
+            window = (start, end)
         else:
             # valid key col j for query row i: start_b <= j <= pos + i
             col = torch.arange(C, dtype=torch.int32, device=dev)
@@ -162,7 +172,7 @@ class GPTModel(nn.Module):
             mask = torch.zeros(valid.shape, dtype=torch.float32,
                                device=dev).masked_fill_(~valid, _NEG_INF)
         h, new_cache = self.encoder(h, mask, cache=cache,
-                                    cache_position=pos % C,
+                                    cache_position=ring,
                                     decode_window=window)
         return self._logits(h, rows_invariant=True), new_cache
 

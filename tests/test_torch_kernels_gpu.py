@@ -592,3 +592,101 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fc.conv_stats(xc, torch.zeros(8, 4, 3, 3, device=cuda), 3, 1)
     with pytest.raises(TypeError):
         fc.conv_stats(xc.half(), torch.zeros(8, 4, 3, 3, device=cuda).half())
+
+
+# -- the slot loop's captured step (text/graphs.py) ---------------------------
+
+def _slot_model(dev):
+    """12 layers, as GPT-2 small, at a narrow width (head_dim 64), bf16."""
+    from paddle_tpu_torch.text.models import GPTConfig, GPTModel
+    model = GPTModel(GPTConfig.tiny(vocab_size=512, hidden_size=128,
+                                    layers=12, heads=2, seq=1024),
+                     device=dev, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    return model.eval()
+
+
+def _slot_steps(dev, kv, C, S=8):
+    """A captured step and the same step run eagerly, from one random
+    state (planes and logits)."""
+    from paddle_tpu_torch.framework.flags import flags_restore, \
+        flags_snapshot, set_flags
+    from paddle_tpu_torch.text.generation import Generator
+    from paddle_tpu_torch.text.graphs import CapturedSlotStep, SlotStep
+    snap = flags_snapshot()
+    try:
+        set_flags({"FLAGS_kv_cache_dtype": kv})
+        gen = Generator(_slot_model(dev), device=dev, seq_buckets=(C,),
+                        max_len=C)
+        cap = gen.step_exec(S, C)
+        eager = SlotStep(gen, S, C, -1)
+    finally:
+        flags_restore(snap)
+    assert isinstance(cap, CapturedSlotStep) and cap.captured
+    g = torch.Generator(device=dev).manual_seed(C)
+    with torch.inference_mode():
+        for c in cap.cache:
+            for p in c:
+                if p.dtype == torch.int8:
+                    p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                          device=dev))
+                elif p.shape[-1] == 1:
+                    p.copy_(torch.rand(p.shape, generator=g, device=dev)
+                            * 0.02 + 1e-3)
+                else:
+                    p.copy_(torch.randn(p.shape, generator=g, device=dev))
+        cap.logits.copy_(torch.randn(cap.logits.shape, generator=g,
+                                     device=dev))
+    eager.load_state(cap)
+    return gen, cap, eager
+
+
+def _assert_same_state(a, b):
+    assert torch.equal(a.logits, b.logits)
+    for ca, cb in zip(a.cache, b.cache):
+        for x, y in zip(ca, cb):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("C", [64, 200, 768])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_slot_step_equals_eager_step(cuda, kv, C):
+    """Five steps from one state, the host rewriting start, active and pos
+    between them: planes, logits, tokens and finished bit-equal, and the
+    wrappers' counts advance by 12 (one launch a layer) per replay."""
+    _, cap, eager = _slot_steps(cuda, kv, C)
+    rng = np.random.RandomState(C)
+    live = "flash_decode_quant" if kv == "int8" else "flash_decode"
+    fin_c = fin_e = np.zeros(8, bool)
+    for i in range(5):
+        pos = C - 5 + i
+        start = rng.randint(0, pos + 1, 8).astype(np.int32)
+        active = rng.rand(8) < 0.7
+        n0 = fd.launch_counts()
+        fin_c, tok_c = cap(start, fin_c, active, pos)
+        n1 = fd.launch_counts()
+        fin_e, tok_e = eager(start, fin_e, active, pos)
+        np.testing.assert_array_equal(tok_c, tok_e)
+        np.testing.assert_array_equal(fin_c, fin_e)
+        _assert_same_state(cap, eager)
+        assert {k: n1[k] - n0[k] for k in n1} == {
+            name: 12 if name == live else 0 for name in n1}
+
+
+def test_captured_slot_step_reads_activation_logits(cuda):
+    """A replay after the slot loop wrote a row's activation logits
+    (``set_logits``) reads them: the row's token is their argmax."""
+    _, cap, eager = _slot_steps(cuda, "bf16", 200)
+    row = torch.full((cap.logits.shape[1],), -1.0, device=cuda)
+    row[321] = 5.0
+    for step in (cap, eager):
+        step.set_logits(3, row)
+    active = np.zeros(8, bool)
+    active[3] = True
+    start = np.full(8, 100, np.int32)
+    fin = np.zeros(8, bool)
+    _, tok_c = cap(start, fin, active, 150)
+    _, tok_e = eager(start, fin, active, 150)
+    assert tok_c[3] == tok_e[3] == 321
+    np.testing.assert_array_equal(tok_c, tok_e)
+    _assert_same_state(cap, eager)

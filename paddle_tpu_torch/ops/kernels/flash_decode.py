@@ -233,12 +233,3 @@ def launch_counts(reset=False):
                 f.launches = 0
     return out
 
-
-def add_launches(counts):
-    """Add ``{name: n}`` to the launch counts.  A captured CUDA graph
-    launches its kernels without running their wrappers: its owner
-    (``text/graphs.py``) takes back what the wrappers counted while it
-    was captured, and adds it on every replay."""
-    with _COUNT_LOCK:
-        for f in (flash_decode, flash_decode_quant):
-            f.launches += int(counts.get(f.__name__, 0))

@@ -10,7 +10,7 @@ cache length):
 
   * ``step_exec(S, C)``: one greedy token step for all ``S`` slot rows,
     one captured CUDA graph on the card (text/graphs.py);
-  * ``chunk_exec(S, T, C)``: one Sarathi-style prefill chunk, ``T``
+  * ``prefill_chunk``: one Sarathi-style prefill chunk, ``T``
     prompt tokens of ONE joining row, interleaved between decode steps
     so long prompts never stall the running rows' token cadence.
 
@@ -138,16 +138,11 @@ class SlotLoop:
         self._end = -1 if eos_token_id is None else int(eos_token_id)
         self._model = model
         # built once here (on the card: captured); every later dispatch
-        # is a plain call, so steady traffic builds nothing
+        # is a plain call, so steady traffic builds nothing.  The step
+        # owns the cache planes: this loop holds it until close()
         self._step = gen.step_exec(self.S, self.C, eos_token_id)
-        self._chunk = gen.chunk_exec(self.S, self.T, self.C)
-        # the prefix cache's two block movers, built with the step and
-        # chunk programs; a loop without it builds nothing extra
+        self._step.claim(self)
         self._prefix = prefix_cache
-        self._push_block = self._pull_block = None
-        if prefix_cache is not None:
-            self._push_block = gen.push_block_exec(self.S, self.T, self.C)
-            self._pull_block = gen.pull_block_exec(self.S, self.T, self.C)
         self._cond = threading.Condition()
         self._pending: "deque[SlotRequest]" = deque()       # guarded-by: _cond
         self._slots = [_Slot() for _ in range(self.S)]  # driver-thread-owned
@@ -219,6 +214,8 @@ class SlotLoop:
             t = self._thread
         if t is not None:
             t.join(timeout=30)
+        if t is None or not t.is_alive():
+            self._step.release(self)
 
     # -- the driver loop -----------------------------------------------------
     def _drive(self):
@@ -369,7 +366,7 @@ class SlotLoop:
             while (slot.next_chunk < n
                    and slot.act - n + slot.next_chunk < self.pos):
                 base = slot.act - n * self.T + slot.next_chunk * self.T
-                self._cache, logits = self._chunk(
+                logits = self._gen.prefill_chunk(
                     self._cache, slot.chunks[slot.next_chunk],
                     [slot.start], i, base)
                 slot.next_chunk += 1
@@ -388,7 +385,7 @@ class SlotLoop:
         the row, not the trie."""
         while slot.restore and slot.restore[0][1] + self.T <= self.pos:
             block, base = slot.restore.pop(0)
-            self._cache = self._push_block(self._cache, block, i, base)
+            self._gen.push_block(self._cache, block, i, base)
             self.counters["restore_pushes"] += 1
         if not slot.restore and slot.pin is not None:
             self._prefix.release(slot.pin)
@@ -458,8 +455,8 @@ class SlotLoop:
         slot_start = slot.start
         self._prefix.publish(
             slot.req.prompt.tolist(),
-            lambda j: self._pull_block(self._cache, i,
-                                       slot_start + j * self.T))
+            lambda j: self._gen.pull_block(self._cache, i,
+                                           slot_start + j * self.T, self.T))
 
     def _retire(self, i):
         slot = self._slots[i]

@@ -60,10 +60,10 @@ class Generator:
         self._seq_buckets = sorted(
             {b for b in ladder.buckets if b <= self._max_len}
             | {self._max_len})
-        # the slot programs (step_exec, chunk_exec, ...), memoized per
-        # key; steps_built counts step builds (on CUDA: graph captures),
-        # as the JAX package's ledger counts generate_step compiles
-        self._execs = {}
+        # the slot loop's steps (step_exec), memoized per key;
+        # steps_built counts step builds (on CUDA: graph captures), as
+        # the JAX package's ledger counts generate_step compiles
+        self._steps = {}
         self.counters = {"steps_built": 0}
 
     @property
@@ -135,8 +135,8 @@ class Generator:
     def _vocab_size(self):
         return int(self._layer.config.vocab_size)
 
-    def _build_step(self, S, C, end):
-        """ONE greedy token step over ``S`` slot rows: the body of
+    def _build_step(self, end):
+        """ONE greedy token step over the slot rows: the body of
         :meth:`decode`'s loop, hoisted so the HOST owns the loop and
         requests retire and join between steps.  Inactive rows are fed
         token 0 and their logits pass through unchanged, so a freshly
@@ -162,79 +162,68 @@ class Generator:
 
         return step
 
-    def _build_chunk(self, S, T, C):
-        """One prefill chunk: ``T`` prompt tokens of ONE joining row at
-        the block position ``pos``, at batch 1 over the row's view of
-        each plane (``p[i:i+1]``), so its K/V block lands in the slot
-        cache in place and no other row is touched.  Rows are independent
-        in forward_cached and its GEMMs are row-invariant, so this equals
-        the row's lane of a batched prefill.  Returns (cache, the chunk's
-        last-column logits f32 [V]); the final chunk's are the activation
-        logits."""
-        fwd = self._layer.forward_cached
-
-        def chunk(cache, ids, start, rowidx, pos):
-            i = int(rowidx)
-            with torch.inference_mode():
-                ids = torch.as_tensor(np.asarray(ids, np.int32),
-                                      device=self.device).reshape(1, T)
-                start = torch.as_tensor(np.asarray(start, np.int32),
-                                        device=self.device).reshape(1)
-                sub = [type(c)(*(p[i:i + 1] for p in c)) for c in cache]
-                logits, _ = fwd(ids, sub, int(pos), start)
-                return cache, logits[0, -1, :].float()
-
-        return chunk
-
     def step_exec(self, S, C, eos_token_id=None):
         """The slot loop's step over ``S`` slots at cache length ``C``:
         on CUDA one captured CUDA graph (text/graphs.py
         ``CapturedSlotStep``), on the CPU the same step run eagerly
         (``SlotStep``).  Memoized per (S, C, eos, KV dtype), as the JAX
         package keeps one executable per key; the step owns its cache
-        planes, so it serves one slot loop at a time."""
+        planes, so one slot loop at a time holds it
+        (``SlotStep.claim``)."""
         from .graphs import CapturedSlotStep, SlotStep
         end = -1 if eos_token_id is None else int(eos_token_id)
-
-        def build():
+        # the cache storage dtype is part of the step: flipping
+        # FLAGS_kv_cache_dtype builds a new one instead of serving stale
+        # planes
+        key = (int(S), int(C), end,
+               str(_flags.flag("kv_cache_dtype")).lower())
+        step = self._steps.get(key)
+        if step is None:
             self.counters["steps_built"] += 1
             cls = CapturedSlotStep if self.device.type == "cuda" \
                 else SlotStep
-            return cls(self, S, C, end)
+            step = self._steps[key] = cls(self, S, C, end)
+        return step
 
-        return self._memo(("step", int(S), int(C), end), build)
+    def prefill_chunk(self, cache, ids, start, rowidx, pos):
+        """One prefill chunk of the slot loop: the ``T`` prompt tokens
+        ``ids`` of ONE joining row at the block position ``pos``, run at
+        batch 1 over the row's view of each plane (``p[i:i+1]``), so its
+        K/V block lands in the slot cache in place and no other row is
+        touched.  Rows are independent in forward_cached and its GEMMs
+        are row-invariant, so this equals the row's lane of a batched
+        prefill.  Returns the chunk's last-column logits f32 [V]; the
+        final chunk's are the row's activation logits."""
+        i = int(rowidx)
+        with torch.inference_mode():
+            ids = torch.as_tensor(np.asarray(ids, np.int32),
+                                  device=self.device).reshape(1, -1)
+            start = torch.as_tensor(np.asarray(start, np.int32),
+                                    device=self.device).reshape(1)
+            sub = [type(c)(*(p[i:i + 1] for p in c)) for c in cache]
+            logits, _ = self._layer.forward_cached(ids, sub, int(pos),
+                                                   start)
+            return logits[0, -1, :].float()
 
-    def chunk_exec(self, S, T, C):
-        """The prefill-chunk program over ``S`` slots at chunk width
-        ``T`` and cache length ``C`` (run eagerly)."""
-        return self._memo(("chunk", int(S), int(T), int(C)),
-                          lambda: self._build_chunk(S, T, C))
+    @staticmethod
+    def pull_block(cache, rowidx, base, T):
+        """A copy of one ``T``-column block of one slot row, every plane
+        (the live planes may change after it)."""
+        i, b = int(rowidx), int(base)
+        with torch.inference_mode():
+            return [type(c)(*(p[i:i + 1, :, b:b + T].clone() for p in c))
+                    for c in cache]
 
-    def pull_block_exec(self, S, T, C):
-        """Read one T-column block of one slot row, every plane:
-        ``(cache, rowidx, base) -> block`` (a fresh copy, so the live
-        planes may change after it)."""
-        def pull(cache, rowidx, base):
-            i, b = int(rowidx), int(base)
-            with torch.inference_mode():
-                return [type(c)(*(p[i:i + 1, :, b:b + T].clone()
-                                  for p in c)) for c in cache]
-        return self._memo(("pull_block", int(S), int(T), int(C)),
-                          lambda: pull)
-
-    def push_block_exec(self, S, T, C):
-        """Write one T-column block into one slot row, every plane, in
-        place: ``(cache, block, rowidx, base) -> cache``.  The block is
-        only read, so one cached prefix block restores into many rows."""
-        def push(cache, block, rowidx, base):
-            i, b = int(rowidx), int(base)
-            with torch.inference_mode():
-                for c, blk in zip(cache, block):
-                    for p, q in zip(c, blk):
-                        p[i:i + 1, :, b:b + T].copy_(q)
-            return cache
-        return self._memo(("push_block", int(S), int(T), int(C)),
-                          lambda: push)
+    @staticmethod
+    def push_block(cache, block, rowidx, base):
+        """Write a block of :meth:`pull_block` into one slot row at column
+        ``base``, every plane, in place.  The block is only read, so one
+        cached prefix block restores into many rows."""
+        i, b = int(rowidx), int(base)
+        with torch.inference_mode():
+            for c, blk in zip(cache, block):
+                for p, q in zip(c, blk):
+                    p[i:i + 1, :, b:b + q.shape[2]].copy_(q)
 
     def init_slot_cache(self, S, C):
         """Zero planes for a fresh slot session (validity windows make
@@ -248,20 +237,6 @@ class Generator:
         ring = self._layer.init_cache(1, 1)
         return sum(p.element_size() * p.numel() // p.shape[2] * T
                    for c in ring for p in c)
-
-    def _memo(self, key, build):
-        key = key + (self._kv_dtype(),)
-        fn = self._execs.get(key)
-        if fn is None:
-            fn = self._execs[key] = build()
-        return fn
-
-    @staticmethod
-    def _kv_dtype():
-        # the cache storage dtype is part of every slot program: flipping
-        # FLAGS_kv_cache_dtype builds new ones instead of serving stale
-        # planes
-        return str(_flags.flag("kv_cache_dtype")).lower()
 
     # -- host-side prep + the public call ------------------------------------
     def pack_prompts(self, prompts, bucket):

@@ -20,12 +20,19 @@ A graph reads and writes fixed addresses, so the step owns its state:
 The step takes its position as a 0-d device tensor
 (``GPTModel.forward_cached``), so nothing in it reads back to the host.
 A failed capture or replay raises: there is no eager fallback.
+
+A replay launches the recorded kernels without running their Python
+wrappers, so the wrappers' launch counts (``ops/kernels``) see the
+capture only; the captured step counts its replays, and a profiler
+trace of the device counts the kernels they launch.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
-from ..ops.kernels import flash_decode as _fd
+from ..framework.enforce import PreconditionNotMetError
 
 __all__ = ["SlotStep", "CapturedSlotStep"]
 
@@ -41,8 +48,9 @@ class SlotStep:
 
     def __init__(self, gen, S, C, end):
         self.S, self.C = int(S), int(C)
+        self._owner = None
         self.device = gen.device
-        self._fn = gen._build_step(self.S, self.C, int(end))
+        self._fn = gen._build_step(int(end))
         cuda = self.device.type == "cuda"
         with torch.inference_mode():
             self.cache = gen.init_slot_cache(self.S, self.C)
@@ -87,6 +95,20 @@ class SlotStep:
         out = self._out_host.numpy()
         return out[1].astype(bool), out[0].copy()
 
+    def claim(self, loop):
+        """Hold this step (its planes are one loop's state) for ``loop``;
+        raises while another live loop holds it."""
+        owner = self._owner() if self._owner is not None else None
+        if owner is not None and owner is not loop:
+            raise PreconditionNotMetError(
+                f"the slot step (S={self.S}, C={self.C}) is held by another "
+                "slot loop of this Generator; close that loop first")
+        self._owner = weakref.ref(loop)
+
+    def release(self, loop):
+        if self._owner is not None and self._owner() is loop:
+            self._owner = None
+
     def set_logits(self, i, row):
         """Write slot ``i``'s activation logits ([V] f32) into the
         logits the next step reads."""
@@ -113,12 +135,8 @@ class SlotStep:
 class CapturedSlotStep(SlotStep):
     """:class:`SlotStep` as one CUDA graph: warmed up on a side stream
     (the kernels build and cuBLAS sets up there), captured once, then
-    replayed per call on the caller's current stream.
-
-    The kernel wrappers count launches on the host, which a replay does
-    not run: what they counted during the capture is taken back (the
-    capture launched nothing) and added on every replay, so the counts
-    stay launches."""
+    replayed per call on the caller's current stream.  ``replays``
+    counts the replays."""
 
     captured = True
 
@@ -132,25 +150,16 @@ class CapturedSlotStep(SlotStep):
             for _ in range(2):
                 self._body()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        before = _fd.launch_counts()
         self._graph = torch.cuda.CUDAGraph()
-        try:
-            # thread-local: a serving thread using the card meanwhile does
-            # not invalidate this capture
-            with torch.inference_mode(), torch.cuda.graph(
-                    self._graph, stream=side,
-                    capture_error_mode="thread_local"):
-                self._body()
-        finally:
-            after = _fd.launch_counts()
-            self.launches_per_replay = {k: after[k] - before[k]
-                                        for k in after}
-            _fd.add_launches({k: -n for k, n in
-                              self.launches_per_replay.items()})
+        # thread-local: a serving thread using the card meanwhile does not
+        # invalidate this capture
+        with torch.inference_mode(), torch.cuda.graph(
+                self._graph, stream=side, capture_error_mode="thread_local"):
+            self._body()
         torch.cuda.synchronize(self.device)
+        self.replays = 0
         self.reset()
 
     def _run(self):
         self._graph.replay()
-        _fd.add_launches(self.launches_per_replay)
-
+        self.replays += 1

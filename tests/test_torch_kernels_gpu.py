@@ -648,12 +648,31 @@ def _assert_same_state(a, b):
             assert torch.equal(x, y)
 
 
+def _traced_decode_kernels(fn):
+    """The decode-kernel launches (decode_cluster_kernel) a torch.profiler
+    trace of the device records while ``fn()`` runs; the trace must hold
+    device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert kernels, "the profiler recorded no device event"
+    return {e.key: e.count for e in kernels
+            if "decode_cluster_kernel" in e.key}
+
+
 @pytest.mark.parametrize("C", [64, 200, 768])
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_captured_slot_step_equals_eager_step(cuda, kv, C):
     """Five steps from one state, the host rewriting start, active and pos
-    between them: planes, logits, tokens and finished bit-equal, and the
-    wrappers' counts advance by 12 (one launch a layer) per replay."""
+    between them: planes, logits, tokens and finished bit-equal.  The
+    eager step's wrapper counts advance by 12 (one launch a layer); a
+    replay runs no wrapper, counts itself, and a trace of the device
+    shows its 12 decode-kernel launches."""
     _, cap, eager = _slot_steps(cuda, kv, C)
     rng = np.random.RandomState(C)
     live = "flash_decode_quant" if kv == "int8" else "flash_decode"
@@ -662,15 +681,23 @@ def test_captured_slot_step_equals_eager_step(cuda, kv, C):
         pos = C - 5 + i
         start = rng.randint(0, pos + 1, 8).astype(np.int32)
         active = rng.rand(8) < 0.7
-        n0 = fd.launch_counts()
+        n0, r0 = fd.launch_counts(), cap.replays
         fin_c, tok_c = cap(start, fin_c, active, pos)
         n1 = fd.launch_counts()
         fin_e, tok_e = eager(start, fin_e, active, pos)
+        n2 = fd.launch_counts()
         np.testing.assert_array_equal(tok_c, tok_e)
         np.testing.assert_array_equal(fin_c, fin_e)
         _assert_same_state(cap, eager)
-        assert {k: n1[k] - n0[k] for k in n1} == {
-            name: 12 if name == live else 0 for name in n1}
+        assert n1 == n0 and cap.replays == r0 + 1
+        assert {k: n2[k] - n1[k] for k in n2} == {
+            name: 12 if name == live else 0 for name in n2}
+    traced = _traced_decode_kernels(
+        lambda: [cap(start, fin_c, active, C - 1) for _ in range(3)])
+    assert sum(traced.values()) == 12 * 3, traced
+    # the int8 cache runs the kernel's int8 instantiation (B4)
+    assert all(("signed char" in k) == (kv == "int8") for k in traced), \
+        traced
 
 
 def test_captured_slot_step_reads_activation_logits(cuda):

@@ -27,6 +27,7 @@ from paddle_tpu_torch import serving
 from paddle_tpu_torch.framework import flags as _flags
 from paddle_tpu_torch.framework.enforce import (InvalidArgumentError,
                                                 OutOfRangeError,
+                                                PreconditionNotMetError,
                                                 UnimplementedError)
 from paddle_tpu_torch.framework.flags import (flags_restore, flags_snapshot,
                                               set_flags)
@@ -84,7 +85,7 @@ def test_churn_matches_jax_slot_loop_and_generate(pair):
     jm, pm = pair
     gen = _gen(pm)
     loop = SlotLoop(gen, slots=4, cache_len=64, chunk=8)
-    built = dict(gen.counters), len(gen._execs)
+    built = dict(gen.counters), len(gen._steps)
     jloop = JaxSlotLoop(JaxGenerator(jm, **BUCKETS), slots=4, cache_len=64,
                         chunk=8)
     oracle = _gen(pm)
@@ -97,7 +98,7 @@ def test_churn_matches_jax_slot_loop_and_generate(pair):
                 np.testing.assert_array_equal(got, want)
             _assert_equal_generate(oracle, reqs, outs)
         # nothing was built (on the card: captured) after warm-up
-        assert (dict(gen.counters), len(gen._execs)) == built
+        assert (dict(gen.counters), len(gen._steps)) == built
         assert gen.counters["steps_built"] == 1
         assert loop.counters["joined"] == loop.counters["retired"] == 48
         assert not loop._step.captured
@@ -208,8 +209,18 @@ def test_slot_loop_constructor_guards(pair):
         # a session id is accepted and ignored
         got = loop.submit([1, 2], 3, session_id="conv-1").result(timeout=60)
         np.testing.assert_array_equal(got, _generate(_gen(pm), [1, 2], 3))
+        # the step (and its planes) is the loop's until it closes
+        with pytest.raises(PreconditionNotMetError, match="another slot"):
+            SlotLoop(gen, slots=2, cache_len=64, chunk=8)
     finally:
         loop.close()
+    again = SlotLoop(gen, slots=2, cache_len=64, chunk=8)
+    try:
+        assert again._step is loop._step
+        got = again.submit([1, 2], 3).result(timeout=60)
+        np.testing.assert_array_equal(got, _generate(_gen(pm), [1, 2], 3))
+    finally:
+        again.close()
 
 
 def test_flags_validation_and_snapshot_restore():

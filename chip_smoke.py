@@ -21,7 +21,13 @@ exits non-zero without printing a result:
               anywhere-in-the-ring windows; two launches on
               one input give the same bits; then its time at the served
               shape and at S = 1024 beside the plain version, a library
-              call and the card's bound;
+              call and the card's bound; the query-block form (the
+              speculative verify block: T = 2 and 5 queries a row, S =
+              256 and 768, f32, bf16 and int8, full, ragged and
+              ring-end windows) against its plain version under the same
+              limits and bit-equal to T one-query launches, then timed
+              at T = 5, S = 768 beside its plain version, SDPA with the
+              same mask and its bound;
   4. serving  GPT-2 small (random bf16 weights from --seed) served
               through Server.register_decode/start/submit_decode, once
               with the bf16 KV cache and once with the int8 one: every
@@ -61,6 +67,29 @@ exits non-zero without printing a result:
               shared-prefix pass (6 requests, 256-token prefix, 48-token
               suffix) with the prefix cache on and off: hit tokens > 0,
               rows as above (near ties at most 8.5%), TTFT;
+  6b. spec    speculative decoding, GPT-2 small target and a random
+              4-layer draft (bench.py's draft widths at vocab 50257),
+              gamma 4, bf16: generate() at batch 1 and 8, 128-token
+              prompts, 128 new tokens, bf16 and int8 KV, equals the plain
+              Generator at the same cache length token for token, with
+              the random draft and with the target as its own draft
+              (acceptance 1.0 in 26 steps), launching the block form
+              once a target layer and the one-query kernel 5 times a
+              draft layer per step (tok/s of each); the run-to-completion
+              server under FLAGS_spec_decode on the serving phase's first
+              8 requests: every row equals its batch-1 greedy decode at the
+              runtime's cache; the speculative slot server on the churn
+              trace's first 24 requests, bf16 then int8, rows held as in
+              the slots phase, every step a replay, none built after
+              warm-up, 20 traced replays of 32 decode kernels each (4 x 5
+              draft + 12 verify), the captured step equal to the eager
+              one (both caches, e, cur, finished, ncommit, n), a
+              self-draft pass accepting every proposal, and the
+              speculative against the plain slot server in turns;
+      beam    generate(beam_size=4), batch 2, 64-token prompts, 32 new
+              tokens: scores non-increasing, tokens in range, B3 launched
+              12 x 32 times, each path's score equal to the sum of its
+              tokens' log-probs fed back as B*K rows at the same cache;
   7. e2e      kernel against plain end to end: f32 generate() with
               FLAGS_use_flash_decode on and off gives equal tokens and
               last logits within 1e-4;
@@ -393,6 +422,7 @@ def phase_kernels(torch, seed):
     log("kernels", max_abs_err=worst, atol=ATOL,
         bf16_vs_bf16_plain_max_row_rel_err=worst_row,
         bf16_row_rtol=BF16_ROW_RTOL)
+    _block_checks(torch, g, worst, worst_row)
 
     # timing at the served shape, rotating over one cache per layer so
     # that, as in a decode step, the cache comes from HBM, not L2
@@ -447,7 +477,172 @@ def phase_kernels(torch, seed):
             f"window, {n} caches rotated", ms=t)
         timings[S] = t
         del caches, quant, deq
+    timings[SEQ_BUCKETS[-1]].update(_block_timing(torch, g))
     return worst, timings[SEQ_BUCKETS[-1]]
+
+
+# the verify block of speculative decoding: gamma + 1 = 5 queries a
+# (batch, head) row, query t seeing [start, pos + t + 1)
+BLOCK_T = (2, 5)
+BLOCK_S = (256, 768)
+SPEC_GAMMA = 4
+
+
+def _block_windows(torch, kind, B, T, S, g):
+    """start [B] and per-query ends [B, T] = pos + t + 1 of a verify block:
+    the whole cache, ragged starts and positions, or a block at the ring's
+    end whose last queries' ends pass S (a position near C - 1, as a
+    0-d device position can put it)."""
+    dev = "cuda"
+    if kind == "full":
+        start = torch.zeros(B, dtype=torch.int32, device=dev)
+        pos = torch.full((B,), S - T, dtype=torch.int32, device=dev)
+    elif kind == "ragged":
+        start = torch.randint(0, S // 2, (B,), generator=g, device=dev,
+                              dtype=torch.int32)
+        pos = start + torch.randint(0, S // 2 - T, (B,), generator=g,
+                                    device=dev, dtype=torch.int32)
+    else:                                       # "ring_end"
+        start = torch.randint(0, S // 2, (B,), generator=g, device=dev,
+                              dtype=torch.int32)
+        pos = torch.full((B,), S - 2, dtype=torch.int32, device=dev)
+    end = (pos[:, None] + 1 + torch.arange(T, device=dev)).int()
+    return start, end.contiguous()
+
+
+def _block_checks(torch, g, worst, worst_row):
+    """The block form of B3 (f32, bf16) and B4 (int8 K/V, bf16 q) against
+    its plain version under the one-query limits, and bit-equal to T
+    one-query launches, at T in {2, 5} and S in {256, 768}."""
+    from paddle_tpu_torch.nn.layer.transformer import quantize_kv_rows
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    B, N, H = 8, 12, 64
+    for S in BLOCK_S:
+        for T in BLOCK_T:
+            for kind_dt in ("float32", "bfloat16", "int8"):
+                dt = torch.float32 if kind_dt == "float32" \
+                    else torch.bfloat16
+                q = torch.randn(B, N, T, H, generator=g, device="cuda").to(dt)
+                k, v = (torch.randn(B, N, S, H, generator=g, device="cuda")
+                        .to(dt) for _ in range(2))
+                if kind_dt == "int8":
+                    k8, ks = quantize_kv_rows(k)
+                    v8, vs = quantize_kv_rows(v)
+                    run = lambda qq, st, e: fd.flash_decode_quant_block(
+                        qq, k8, v8, ks, vs, st, e)
+                    one = lambda qq, st, e: fd.flash_decode_quant(
+                        qq, k8, v8, ks, vs, st, e)
+                    want = lambda st, e: fd.flash_decode_quant_plain(
+                        q.float(), k8, v8, ks, vs, st, e)
+                    same = lambda st, e: fd.flash_decode_quant_plain(
+                        q, k8, v8, ks, vs, st, e)
+                    kern, tol = "flash_decode_quant_block", ATOL["bfloat16"]
+                else:
+                    run = lambda qq, st, e: fd.flash_decode_block(
+                        qq, k, v, st, e)
+                    one = lambda qq, st, e: fd.flash_decode(qq, k, v, st, e)
+                    want = lambda st, e: fd.flash_decode_plain(
+                        q.float(), k.float(), v.float(), st, e)
+                    same = lambda st, e: fd.flash_decode_plain(q, k, v, st,
+                                                               e)
+                    kern, tol = "flash_decode_block", ATOL[kind_dt]
+                for kind in ("full", "ragged", "ring_end"):
+                    start, end = _block_windows(torch, kind, B, T, S, g)
+                    got = run(q, start, end)
+                    singles = [one(q[:, :, t:t + 1].contiguous(), start,
+                                   end[:, t].contiguous()) for t in range(T)]
+                    torch.cuda.synchronize()
+                    where = f"{kern} T={T} S={S} {kind_dt} {kind}"
+                    check(got.shape == q.shape and got.dtype == dt,
+                          f"{where}: returned {got.shape} {got.dtype}")
+                    check(all(torch.equal(got[:, :, t:t + 1], singles[t])
+                              for t in range(T)),
+                          f"{where}: a query row differs from its one-query "
+                          "launch")
+                    err = (got.float() - want(start, end)).abs().max().item()
+                    check(err <= tol, f"{where}: max abs err {err} > {tol}")
+                    worst[kern] = max(worst.get(kern, 0.0), err)
+                    if dt == torch.bfloat16:
+                        rel = _row_rel_err(torch, got, same(start, end))
+                        check(rel <= BF16_ROW_RTOL,
+                              f"{where}: {rel} of the row's max |out| "
+                              f"against the bf16 plain version")
+                        worst_row[kern] = max(worst_row.get(kern, 0.0), rel)
+            log("kernels", check=f"block T={T} S={S}",
+                dtypes="float32,bfloat16,int8",
+                windows="full,ragged,ring_end",
+                equals_one_query_launches_bit_for_bit=True, ok=True)
+    log("kernels", block_max_abs_err={k: worst[k] for k in worst
+                                      if "block" in k},
+        block_bf16_max_row_rel_err={k: worst_row[k] for k in worst_row
+                                    if "block" in k})
+
+
+def _block_bound(B, N, H, start, end, elt, q_bytes, quant, kv_dtype):
+    """Least time for one block call: the K/V rows of each (batch, head)
+    row's widest window read once (and their scales), q and the output
+    once, against the QK and PV operations of every query's window."""
+    S_cols = (end.max(1).values - start).clamp_min(0)
+    cols = int(S_cols.sum().item()) * N
+    T = end.shape[1]
+    nbytes = 2 * cols * H * elt + 2 * B * N * T * H * q_bytes
+    if quant:
+        nbytes += 2 * cols * 4
+    ops = 4 * H * N * int((end - start[:, None]).clamp_min(0).sum().item())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kv_dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def _block_timing(torch, g):
+    """The block form at the verify block of the slot loop's 8 rows:
+    T = gamma + 1 = 5 queries, S = 768, H = 64, bf16 q, the block at the
+    ring's middle (windows of ~380 columns), rotating 12 caches as the
+    layers do; beside its plain version, SDPA with the same causal-window
+    mask (the library call) and its bound."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.nn.layer.transformer import quantize_kv_rows
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    B, N, H, S, T = 8, 12, 64, 768, SPEC_GAMMA + 1
+    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    pos = torch.full((B,), S // 2, dtype=torch.int32, device="cuda")
+    end = (pos[:, None] + 1 + torch.arange(T, device="cuda")).int()
+    q = torch.randn(B, N, T, H, generator=g, device="cuda").bfloat16()
+    caches = [tuple(torch.randn(B, N, S, H, generator=g,
+                                device="cuda").bfloat16() for _ in range(2))
+              for _ in range(LAYERS_CACHES)]
+    quant = [quantize_kv_rows(k) + quantize_kv_rows(v) for k, v in caches]
+    col = torch.arange(S, device="cuda")
+    valid = (col >= start[:, None, None]) & (col < end[:, :, None])
+    mask = torch.zeros(B, 1, T, S, device="cuda").bfloat16() \
+        .masked_fill_(~valid[:, None], -1e30)
+    n = len(caches)
+    t = {
+        "flash_decode_block": _graph_ms(torch, lambda i: fd.flash_decode_block(
+            q, *caches[i % n], start, end), 2 * n),
+        "flash_decode_block_plain": _graph_ms(torch, lambda i:
+            fd.flash_decode_plain(q, *caches[i % n], start, end), 2 * n),
+        "flash_decode_block_library": _graph_ms(torch, lambda i:
+            F.scaled_dot_product_attention(q, *caches[i % n],
+                                           attn_mask=mask), 2 * n),
+        "flash_decode_quant_block": _graph_ms(torch, lambda i:
+            fd.flash_decode_quant_block(q, quant[i % n][0], quant[i % n][2],
+                                        quant[i % n][1], quant[i % n][3],
+                                        start, end), 2 * n),
+        "flash_decode_quant_block_plain": _graph_ms(torch, lambda i:
+            fd.flash_decode_quant_plain(q, quant[i % n][0], quant[i % n][2],
+                                        quant[i % n][1], quant[i % n][3],
+                                        start, end), 2 * n),
+    }
+    b3, b3_by, _ = _block_bound(B, N, H, start, end, 2, 2, False, "bfloat16")
+    b4, b4_by, _ = _block_bound(B, N, H, start, end, 1, 2, True, "int8")
+    t.update(flash_decode_block_bound=b3, flash_decode_block_bound_by=b3_by,
+             flash_decode_quant_block_bound=b4,
+             flash_decode_quant_block_bound_by=b4_by)
+    log("kernels", timing=f"block B={B} N={N} T={T} S={S} H={H} bf16 q, "
+        f"windows [0, {S // 2 + 1}..{S // 2 + T}), {n} caches rotated", ms=t)
+    return t
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -828,16 +1023,21 @@ def _tie_summary(ties):
                                                 default=0.0), 5)}
 
 
-def _slot_server(torch, model, kv, prefix=False):
+def _slot_server(torch, model, kv, prefix=False, draft=None):
+    """The slot server; with ``draft``, speculative (FLAGS_spec_decode,
+    gamma = SPEC_GAMMA)."""
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.framework import flags
     flags.set_flags({"FLAGS_kv_cache_dtype": kv, "FLAGS_decode_slots": SLOTS,
                      "FLAGS_prefill_chunk": CHUNK,
-                     "FLAGS_prefix_cache": prefix})
+                     "FLAGS_prefix_cache": prefix,
+                     "FLAGS_spec_decode": draft is not None})
     srv = serving.Server(serving.ServingConfig(workers=SLOT_WORKERS))
-    srv.register_decode("gpt2", model, **SLOT_GRID)
+    srv.register_decode("gpt2", model, draft_layer=draft, gamma=SPEC_GAMMA,
+                        **SLOT_GRID)
     srv.start()
-    flags.set_flags({"FLAGS_decode_slots": 0, "FLAGS_prefix_cache": False})
+    flags.set_flags({"FLAGS_decode_slots": 0, "FLAGS_prefix_cache": False,
+                     "FLAGS_spec_decode": False})
     return srv
 
 
@@ -854,8 +1054,8 @@ def _serve_churn(torch, srv, reqs):
                     "tok_per_s": round(tokens / dt, 1), "stats": st}
 
 
-def _slot_turn(torch, model, reqs, kv="bf16"):
-    srv = _slot_server(torch, model, kv)
+def _slot_turn(torch, model, reqs, kv="bf16", draft=None):
+    srv = _slot_server(torch, model, kv, draft=draft)
     try:
         _, out = _serve_churn(torch, srv, reqs)
     finally:
@@ -933,44 +1133,59 @@ def _step_compare(torch, gen, kv, steps=5):
     return cap, eager
 
 
-def _step_profile(torch, step, calls=20):
-    """Host ms per call (no profiler), then device busy ms, kernels and
-    decode-kernel launches per call under torch.profiler.  A trace with
-    no device time fails: the launches read from it would be blind."""
+def _plain_run(step):
+    """One full slot step a call, at positions cycling over 8 columns."""
+    start, fin, active, pos = _step_state(step.S, step.C, 3)
+    return lambda i: step(start, fin, active, pos + (i % 8))
+
+
+def _step_profile(torch, run, calls=20, per_trace=None):
+    """Host ms per ``run(i)`` call (no profiler), then device busy ms,
+    kernels and decode-kernel launches per call under torch.profiler, in
+    traces of ``per_trace`` calls each (default: one trace).  A trace of
+    ~27,000 kernels (20 int8 speculative steps) lost records on an H100
+    where traces of under ~15,000 did not, so longer steps are traced in
+    several windows and summed.  A trace with no device time fails: the
+    launches read from it would be blind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    start, fin, active, pos = _step_state(step.S, step.C, 3)
-    step(start, fin, active, pos)
+    run(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(calls):
-        step(start, fin, active, pos + (i % 8))
+        run(i)
     host_ms = (time.perf_counter() - t0) / calls * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            step(start, fin, active, pos + (i % 8))
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    per_trace = per_trace or calls
+    count, dev_us = {}, {}
+    for w in range(0, calls, per_trace):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(w, min(calls, w + per_trace)):
+                run(i)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                count[e.key] = count.get(e.key, 0) + e.count
+                dev_us[e.key] = dev_us.get(e.key, 0.0) + \
+                    e.self_device_time_total
+    busy = sum(dev_us.values()) / 1e3 / calls
     check(busy > 0, f"torch.profiler recorded no device time over {calls} "
           "slot steps")
     # B3 and B4 are one template, decode_cluster_kernel
-    fd_events = [e for e in kernels if "decode_cluster_kernel" in e.key]
+    fd_keys = [k for k in count if "decode_cluster_kernel" in k]
     return {"host_ms": round(host_ms, 4), "device_ms": round(busy, 4),
             "idle_share": round(max(0.0, 1 - busy / host_ms), 4),
-            "kernels_per_step": round(sum(e.count for e in kernels)
-                                      / calls, 2),
-            "decode_kernel_launches": sum(e.count for e in fd_events),
-            "decode_kernel_ms": round(sum(e.self_device_time_total
-                                          for e in fd_events) / 1e3, 4),
-            "top_kernels": [{"name": e.key[:70],
-                             "calls_per_step": round(e.count / calls, 2),
-                             "ms_per_step": round(e.self_device_time_total
-                                                  / 1e3 / calls, 4)}
-                            for e in sorted(kernels, key=lambda e:
-                                            -e.self_device_time_total)[:6]]}
+            "kernels_per_step": round(sum(count.values()) / calls, 2),
+            "decode_kernel_launches": sum(count[k] for k in fd_keys),
+            "decode_kernel_ms": round(sum(dev_us[k] for k in fd_keys)
+                                      / 1e3, 4),
+            "traces": -(-calls // per_trace),
+            "top_kernels": [{"name": k[:70],
+                             "calls_per_step": round(count[k] / calls, 2),
+                             "ms_per_step": round(dev_us[k] / 1e3 / calls,
+                                                  4)}
+                            for k in sorted(dev_us, key=lambda k:
+                                            -dev_us[k])[:6]]}
 
 
 def phase_slots(torch, model, seed):
@@ -1018,7 +1233,7 @@ def phase_slots(torch, model, seed):
                       f"{built} -> {rt.gen.counters}")
                 # (iv) the graph the churn replayed, traced over 20
                 # replays: 12 decode kernels (B3, or B4 under int8) each
-                prof = _step_profile(torch, step)
+                prof = _step_profile(torch, _plain_run(step))
                 check(prof["decode_kernel_launches"] == layers * 20
                       and prof["decode_kernel_ms"] > 0,
                       f"slots kv={kv}: traced replays {prof}")
@@ -1028,7 +1243,7 @@ def phase_slots(torch, model, seed):
                                       f"slots kv={kv}",
                                       SLOT_TIE_SHARE["churn"])
             cap, eager = _step_compare(torch, rt.gen, kv)
-            eager_prof = _step_profile(torch, eager)
+            eager_prof = _step_profile(torch, _plain_run(eager))
             out[kv] = {"steps": sl["steps"], "steps_replayed": sl["steps"],
                        "wrapper_launches": sum(counts.values()),
                        "decode_kernel_launches": prof[
@@ -1099,6 +1314,406 @@ def phase_slots(torch, model, seed):
     finally:
         flags.flags_restore(snap)
     return out
+
+
+# -- phase 6b: speculative decoding and beam search --------------------------
+
+# the draft: bench.py:1101-1104's widths (hidden 256, 4 layers, 4 heads,
+# intermediate 1024, 1024 positions) at the target's vocabulary 50257,
+# since acceptance compares token ids (bench.py's pair uses 32000)
+DRAFT_CFG = dict(hidden_size=256, num_layers=4, num_heads=4,
+                 intermediate_size=1024, max_position_embeddings=1024)
+SPEC_PROMPT, SPEC_NEW, SPEC_BATCHES = 128, 128, (1, 8)
+SPEC_BUCKETS = dict(seq_buckets=(SPEC_PROMPT, 512), max_len=512)
+# the run-to-completion server under FLAGS_spec_decode: the serving
+# phase's grid and traffic, at a ring with the verify block's slack
+# (128 + 128 + gamma + 1 columns do not fit 256)
+SPEC_GRID = dict(batch_buckets=BATCH_BUCKETS, max_new_tokens=MAX_NEW,
+                 **SPEC_BUCKETS)
+# the speculative server takes the serving phase's first 8 requests (one
+# batch of 8) and the speculative slot server the churn trace's first 24
+# (cuts of 16 and 48, for the script's time); the self-draft pass 8
+SPEC_REQUESTS, SPEC_CHURN, SELF_DRAFT_CHURN = 8, 24, 8
+BEAM = dict(batch=2, prompt=64, new=32, beam=4)
+
+
+def _draft_model(torch, seed, vocab):
+    from paddle_tpu_torch.text.models import GPTConfig, GPTModel
+    draft = GPTModel(GPTConfig(vocab_size=vocab, **DRAFT_CFG),
+                     device="cuda", dtype=torch.bfloat16)
+    draft.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    return draft.eval()
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _spec_launches_ok(counts, kv, layers, per_step_one, steps, where):
+    """The verify blocks launched the block form once a target layer a
+    step; the draft's one-token forwards the one-query kernel
+    ``per_step_one`` times a step; the other dtype's kernels never."""
+    q = "_quant" if kv == "int8" else ""
+    want = {f"flash_decode{q}_block": layers * steps,
+            f"flash_decode{q}": per_step_one * steps}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"{where}: launches {counts}, want {want} (others 0)")
+
+
+def _spec_generate(torch, model, draft, seed):
+    """SpeculativeGenerator against the plain Generator at the same cache
+    length, batch 1 and 8, 128-token prompts, 128 new tokens, bf16 and
+    int8 KV: equal tokens with the random draft and with the target as
+    its own draft (acceptance 1.0 in ceil(128/5) steps); decode tok/s
+    of each (prefill not timed, after a short warm-up decode)."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.text.generation import Generator
+    from paddle_tpu_torch.text.speculative import SpeculativeGenerator
+    layers, dlayers = model.config.num_layers, draft.config.num_layers
+    G1 = SPEC_GAMMA + 1
+    rng = np.random.RandomState(seed + 21)
+    out = {}
+    for kv in ("bf16", "int8"):
+        flags.set_flags({"FLAGS_kv_cache_dtype": kv})
+        plain = Generator(model, **SPEC_BUCKETS)
+        gens = {name: SpeculativeGenerator(model, d, gamma=SPEC_GAMMA,
+                                           **SPEC_BUCKETS)
+                for name, d in (("random_draft", draft),
+                                ("self_draft", model))}
+        for B in SPEC_BATCHES:
+            ids = rng.randint(1, model.config.vocab_size, (B, SPEC_PROMPT))
+            pids, start = plain.pack_prompts(list(ids), SPEC_PROMPT)
+            C = gens["self_draft"].cache_bucket(SPEC_PROMPT, SPEC_NEW)
+            row = {"cache": C}
+
+            def decode(gen, steps=SPEC_NEW):
+                cache, logits0 = gen.prefill(pids, start, C)
+                return _timed(torch, lambda: gen.decode(
+                    cache, logits0, start, SPEC_PROMPT, steps))
+
+            decode(plain, 8)
+            want, dt = decode(plain)
+            row["plain_tok_per_s"] = round(B * SPEC_NEW / dt, 1)
+            for name, gen in gens.items():
+                decode(gen, 8)
+                fd.launch_counts(reset=True)
+                got, dt = decode(gen)
+                counts = fd.launch_counts()
+                st = gen.last_stats
+                where = f"spec generate kv={kv} B={B} {name}"
+                check(torch.equal(got, want),
+                      f"{where}: speculative tokens differ from greedy at "
+                      f"cache {C} from token "
+                      f"{(got != want).nonzero()[:1].tolist()}")
+                one = (dlayers if name == "random_draft" else layers) * G1
+                _spec_launches_ok(counts, kv, layers, one,
+                                  st["spec_steps"], where)
+                if name == "self_draft":
+                    check(st["acceptance_rate"] == 1.0
+                          and st["spec_steps"] == -(-SPEC_NEW // G1),
+                          f"{where}: {st}")
+                row[name] = {"tok_per_s": round(B * SPEC_NEW / dt, 1),
+                             "acceptance_rate": st["acceptance_rate"],
+                             "spec_steps": st["spec_steps"],
+                             "launches": counts}
+            log("spec", path="generate", kv_cache=kv, batch=B,
+                prompt=SPEC_PROMPT, new_tokens=SPEC_NEW, gamma=SPEC_GAMMA,
+                equals_greedy_at_same_cache=True, **row)
+            out[f"{kv}_b{B}"] = row
+    return out
+
+
+def _spec_server(torch, model, draft, seed):
+    """FLAGS_spec_decode with a draft_layer over the serving phase's
+    request mix, run to completion: every served row equals its batch-1
+    plain Generator decode at the runtime's cache length."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.text.generation import Generator
+    from paddle_tpu_torch.text.speculative import SpeculativeGenerator
+    flags.set_flags({"FLAGS_kv_cache_dtype": "bf16",
+                     "FLAGS_spec_decode": True})
+    srv = serving.Server()
+    srv.register_decode("gpt2", model, draft_layer=draft, gamma=SPEC_GAMMA,
+                        **SPEC_GRID)
+    srv.start()
+    flags.set_flags({"FLAGS_spec_decode": False})
+    prompts = _traffic(seed, model.config.vocab_size)[:SPEC_REQUESTS]
+    try:
+        rt = srv._models["gpt2"]
+        check(isinstance(rt.gen, SpeculativeGenerator),
+              f"spec server: the runtime serves {type(rt.gen).__name__}")
+        steps0 = rt.gen.totals["spec_steps"]
+        # the path's run: counts read from 0 just before it
+        fd.launch_counts(reset=True)
+        t0 = time.perf_counter()
+        futs = [srv.submit_decode("gpt2", [p], timeout=60) for p in prompts]
+        served = [f.result(timeout=600)[0][0] for f in futs]
+        dt = time.perf_counter() - t0
+        counts = fd.launch_counts()
+        st = srv.stats("gpt2")
+        steps = rt.gen.totals["spec_steps"] - steps0
+        C = rt.gen.cache_bucket(SPEC_PROMPT, MAX_NEW)
+    finally:
+        srv.stop()
+    _spec_launches_ok(counts, "bf16", model.config.num_layers,
+                      draft.config.num_layers * (SPEC_GAMMA + 1), steps,
+                      "spec server")
+    check(st["completed"] == len(prompts) and st["errors"] == 0,
+          f"spec server: {st}")
+    oracle = Generator(model, **SPEC_BUCKETS)
+    for i, (p, got) in enumerate(zip(prompts, served)):
+        ids, start = oracle.pack_prompts([p], SPEC_PROMPT)
+        cache, logits0 = oracle.prefill(ids, start, C)
+        want = oracle.decode(cache, logits0, start, SPEC_PROMPT,
+                             MAX_NEW).cpu().numpy()[0]
+        check(np.array_equal(got, want),
+              f"spec server: row {i} (prompt {p.size}) differs from its "
+              f"batch-1 greedy decode at cache {C}")
+    out = {"requests": len(prompts), "cache": C, "batches": st["batches"],
+           "spec_steps": steps, "tok_per_s": round(
+               len(prompts) * MAX_NEW / dt, 1),
+           "ttft_p50_ms": round(st["ttft_p50_ms"], 2),
+           "spec_accepted": st["spec_accepted"],
+           "spec_proposed": st["spec_proposed"],
+           "spec_acceptance_rate": st["spec_acceptance_rate"],
+           "launches": counts,
+           "rows_equal_batch1_greedy": f"{len(prompts)}/{len(prompts)}"}
+    log("spec", path="server", **out)
+    return out
+
+
+def _spec_run(step):
+    """One full speculative slot step a call (every row active, commits
+    of up to gamma + 1), at positions cycling over 8 columns."""
+    start, fin, active, pos = _step_state(step.S, step.C, 3)
+    cur = np.zeros(step.S, np.int32)
+    return lambda i: step(start, fin, active, cur, pos + (i % 8), step.G1)
+
+
+def _spec_step_compare(torch, gen, kv, steps=5):
+    """The captured speculative step against the same step run eagerly,
+    from one random state of both caches: planes, e, cur, finished,
+    ncommit and n bit-equal, the host rewriting its vectors between
+    steps."""
+    from paddle_tpu_torch.text.graphs import SpecSlotStep
+    cap = gen.step_exec(SLOTS, SLOT_CACHE)
+    eager = SpecSlotStep(gen, SLOTS, SLOT_CACHE, -1)
+    check(cap.captured, "spec slots: step_exec on CUDA returned an "
+          "uncaptured step")
+    g = torch.Generator(device="cuda").manual_seed(SLOT_CACHE)
+    with torch.inference_mode():
+        for p in cap.planes():
+            if p.dtype == torch.int8:
+                p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                      device="cuda"))
+            elif p.shape[-1] == 1:
+                p.copy_(torch.rand(p.shape, generator=g, device="cuda")
+                        * 0.02 + 1e-3)
+            else:
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda"))
+    eager.load_state(cap)
+    start, fin, active, pos = _step_state(SLOTS, SLOT_CACHE, 1)
+    rng = np.random.RandomState(2)
+    cur = rng.randint(0, gen._vocab_size(), SLOTS).astype(np.int32)
+    oc = oe = (cur, fin)
+    for i in range(steps):
+        active = rng.rand(SLOTS) < 0.8
+        start = rng.randint(0, pos - 100, SLOTS).astype(np.int32)
+        mc = int(rng.randint(1, SPEC_GAMMA + 2))
+        rc = cap(start, oc[1], active, oc[0], pos, mc)
+        re = eager(start, oe[1], active, oe[0], pos, mc)
+        same = (all(np.array_equal(a, b) for a, b in zip(rc, re))
+                and all(torch.equal(x, y) for x, y in zip(cap.planes(),
+                                                          eager.planes())))
+        check(same, f"spec slots kv={kv}: the captured step differs from "
+              f"the eager step at step {i}")
+        oc, oe = rc[:2], re[:2]
+        pos += rc[3]
+    return cap, eager
+
+
+def _spec_slots(torch, model, draft, seed):
+    """The speculative slot server (8 slots, chunk 64, 768-column ring)
+    over the churn trace's first 24 requests, bf16 then int8: tokens held
+    to the teacher-forced oracle (the slots phase's rule and caps), every
+    step a replay of the captured speculative step and none built after
+    warm-up; 20 replays traced (draft layers x 5 + target layers decode
+    kernels each); captured against eager; the target as its own draft
+    accepts every proposal; speculative against plain slot server in
+    turns."""
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.text.generation import Generator
+    from paddle_tpu_torch.text.graphs import CapturedSpecSlotStep
+    layers, dlayers = model.config.num_layers, draft.config.num_layers
+    per_replay = dlayers * (SPEC_GAMMA + 1) + layers
+    reqs = _churn(seed + 7, model.config.vocab_size)[:SPEC_CHURN]
+    oracle = Generator(model, seq_buckets=(128, 256, 512, SLOT_CACHE),
+                       max_len=SLOT_CACHE)
+    out = {}
+    for kv in ("bf16", "int8"):
+        srv = _slot_server(torch, model, kv, draft=draft)
+        try:
+            rt = srv._models["gpt2"]
+            step = rt._loop._step
+            check(isinstance(step, CapturedSpecSlotStep),
+                  f"spec slots kv={kv}: the loop's step is "
+                  f"{type(step).__name__}")
+            built = dict(rt.gen.counters)
+            fd.launch_counts(reset=True)
+            r0 = step.replays
+            served, run = _serve_churn(torch, srv, reqs)
+            counts = fd.launch_counts()
+            sl = run["stats"]["slot_loop"]
+            check(step.replays - r0 == sl["steps"] > 0
+                  and sum(counts.values()) == 0,
+                  f"spec slots kv={kv}: {step.replays - r0} replays for "
+                  f"{sl['steps']} steps, wrapper launches {counts}")
+            check(sl["joined"] == sl["retired"] == len(reqs),
+                  f"spec slots kv={kv}: {sl}")
+            check(dict(rt.gen.counters) == built,
+                  f"spec slots kv={kv}: steps built after warm-up: "
+                  f"{built} -> {rt.gen.counters}")
+            prof = _step_profile(torch, _spec_run(step), per_trace=5)
+            check(prof["decode_kernel_launches"] == per_replay * 20
+                  and prof["decode_kernel_ms"] > 0,
+                  f"spec slots kv={kv}: traced replays {prof}, want "
+                  f"{per_replay} decode kernels a replay")
+        finally:
+            srv.stop()
+        equal, ties = _check_rows(torch, model, oracle, reqs, served,
+                                  f"spec slots kv={kv}",
+                                  SLOT_TIE_SHARE["churn"])
+        cap, eager = _spec_step_compare(torch, rt.gen, kv)
+        eager_prof = _step_profile(torch, _spec_run(eager), per_trace=5)
+        out[kv] = {"steps": sl["steps"], "steps_replayed": sl["steps"],
+                   "wrapper_launches": sum(counts.values()),
+                   "decode_kernels_per_replay": per_replay,
+                   "chunks": sl["chunks"], "tok_per_s": run["tok_per_s"],
+                   "ttft_p50_ms": sl["ttft_p50_ms"],
+                   "ttft_p99_ms": sl["ttft_p99_ms"],
+                   "spec_accepted": sl["spec_accepted"],
+                   "spec_proposed": sl["spec_proposed"],
+                   "spec_acceptance_rate": sl.get("spec_acceptance_rate"),
+                   "rows_equal_batch1_generate": f"{equal}/{len(reqs)}",
+                   "tokens_checked": sum(mn for _, mn in reqs),
+                   **_tie_summary(ties),
+                   "captured_step": prof, "eager_step": eager_prof,
+                   "captured_equals_eager": True}
+        log("spec", path="slots", kv_cache=kv, requests=len(reqs),
+            slots=SLOTS, chunk=CHUNK, cache=SLOT_CACHE, gamma=SPEC_GAMMA,
+            **out[kv])
+        del cap, eager, rt, srv, step
+    # the target as its own draft: every proposal accepted
+    srv = _slot_server(torch, model, "bf16", draft=model)
+    try:
+        _serve_churn(torch, srv, reqs[:SELF_DRAFT_CHURN])
+        sl = srv.stats("gpt2")["slot_loop"]
+    finally:
+        srv.stop()
+    check(sl["spec_acceptance_rate"] == 1.0,
+          f"spec slots, self-draft: {sl}")
+    out["self_draft"] = {k: sl[k] for k in ("spec_accepted", "spec_proposed",
+                                            "spec_acceptance_rate", "steps")}
+    # the speculative slot server against the plain one, in turns
+    turns = {"spec": [], "plain": []}
+    for kind in ("spec", "plain", "spec"):
+        turns[kind].append(_slot_turn(
+            torch, model, reqs, draft=draft if kind == "spec" else None))
+    out["turns"] = turns
+    log("spec", path="slots", self_draft=out["self_draft"], turns=turns)
+    return out
+
+
+def phase_spec(torch, model, seed):
+    """Speculative decoding with the random draft (and the target as its
+    own draft) through generate(), the run-to-completion server and the
+    slot loop."""
+    from paddle_tpu_torch.framework import flags
+    draft = _draft_model(torch, seed + 5, model.config.vocab_size)
+    snap = flags.flags_snapshot()
+    out, secs = {}, {}
+    try:
+        for name, fn in (("generate", _spec_generate),
+                         ("server", _spec_server), ("slots", _spec_slots)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, model, draft, seed)
+            secs[name] = round(time.perf_counter() - t0, 1)
+    finally:
+        flags.flags_restore(snap)
+    log("spec", seconds=secs)
+    return out
+
+
+def phase_beam(torch, model, seed):
+    """generate(beam_size=4), batch 2, 64-token prompts, 32 new tokens,
+    bf16: scores non-increasing per row, tokens in range, B3 launched once
+    a layer a step; every path's score against the sum of its tokens'
+    log-probs recomputed by feeding the paths as B*K rows at the same
+    cache length (expected bit-equal; held to 1e-5 of max(1, |score|))."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.text.generation import Generator
+    B, P, steps, K = BEAM["batch"], BEAM["prompt"], BEAM["new"], BEAM["beam"]
+    V = model.config.vocab_size
+    snap = flags.flags_snapshot()
+    try:
+        flags.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
+        gen = Generator(model, seq_buckets=(P, 128), max_len=128)
+        ids = np.random.RandomState(seed + 31).randint(1, V, (B, P))
+        fd.launch_counts(reset=True)
+        (paths, scores), dt = _timed(torch, lambda: gen.generate(
+            ids, max_new_tokens=steps, beam_size=K))
+        counts = fd.launch_counts()
+        layers = model.config.num_layers
+        check(counts["flash_decode"] == layers * steps
+              and sum(counts.values()) == layers * steps,
+              f"beam: launches {counts}, want flash_decode = {layers} x "
+              f"{steps}")
+        check(tuple(paths.shape) == (B, K, steps)
+              and tuple(scores.shape) == (B, K),
+              f"beam: shapes {tuple(paths.shape)} {tuple(scores.shape)}")
+        check(bool(torch.isfinite(scores).all())
+              and bool((scores[:, 1:] <= scores[:, :-1]).all()),
+              f"beam: scores not finite and non-increasing: {scores}")
+        check(bool(((paths >= 0) & (paths < V)).all()),
+              "beam: a path token out of range")
+        # the paths fed back as B*K rows through the same cache length
+        C = gen.cache_bucket(P, steps)
+        pids, start = gen.pack_prompts(list(ids), P)
+        start_k = np.repeat(start, K)
+        with torch.inference_mode():
+            cache, logits = gen.prefill(np.repeat(pids, K, axis=0), start_k,
+                                        C)
+            fed = paths.reshape(B * K, steps)
+            st = torch.as_tensor(start_k, device="cuda")
+            total = torch.zeros(B * K, device="cuda")
+            for t in range(steps):
+                lp = torch.log_softmax(logits, dim=-1)
+                total = total + lp.gather(1, fed[:, t:t + 1].long())[:, 0]
+                nl, cache = model.forward_cached(fed[:, t:t + 1], cache,
+                                                 P + t, st)
+                logits = nl[:, 0].float()
+        total = total.reshape(B, K)
+        diff = (total - scores).abs().max().item()
+        check(diff <= 1e-5 * max(1.0, scores.abs().max().item()),
+              f"beam: recomputed path scores differ by {diff}")
+        out = {"batch": B, "beam": K, "prompt": P, "new_tokens": steps,
+               "cache": C, "seconds": round(dt, 3),
+               "scores": np.round(scores.cpu().numpy(), 4).tolist(),
+               "recomputed_scores_bit_equal": bool(torch.equal(total,
+                                                               scores)),
+               "recomputed_max_abs_diff": diff, "launches": counts}
+        log("beam", **out)
+        return out
+    finally:
+        flags.flags_restore(snap)
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2379,6 +2994,8 @@ def main(argv=None):
     served = phase_serving(torch, model, args.seed)
     phase_profile(torch, model, args.seed)
     phase_slots(torch, model, args.seed)
+    spec = phase_spec(torch, model, args.seed)
+    beam = phase_beam(torch, model, args.seed)
     phase_batch_probe(torch, model, args.seed)
     del model
     phase_e2e(torch, args.seed)
@@ -2414,10 +3031,23 @@ def main(argv=None):
          "library_ms": fa_timing["sdpa_fwd" if k == "fwd" else "sdpa_bwd"]}
         for k, line in (("fwd", 67), ("dq", 192), ("dkv", 232))]
     src = "paddle_tpu_torch/csrc/flash_decode.cu"
+    gen_b8 = spec["generate"]
     kernels = [
         {"name": "flash_decode", "route": "cuda", "source": src,
          "replaces": "paddle_tpu/ops/pallas/flash_decode.py:68",
          "launches": served["bf16"]["launches"]["flash_decode"],
+         # the wrappers' counts of the other paths that launch B3, and
+         # the slot paths' launches a replay from device traces
+         "launches_by_path": {
+             "serving": served["bf16"]["launches"]["flash_decode"],
+             "spec_server_draft": spec["server"]["launches"][
+                 "flash_decode"],
+             "spec_generate_draft_b8": gen_b8["bf16_b8"]["random_draft"][
+                 "launches"]["flash_decode"],
+             "beam": beam["launches"]["flash_decode"],
+             "slot_step_per_replay": 12,
+             "spec_slot_step_draft_per_replay": spec["slots"]["bf16"][
+                 "decode_kernels_per_replay"] - 12},
          "max_abs_err": worst["flash_decode"],
          "ms": timing["flash_decode"],
          "plain_ms": timing["flash_decode_plain"],
@@ -2427,12 +3057,43 @@ def main(argv=None):
         {"name": "flash_decode_quant", "route": "cuda", "source": src,
          "replaces": "paddle_tpu/ops/pallas/flash_decode.py:159",
          "launches": served["int8"]["launches"]["flash_decode_quant"],
+         "launches_by_path": {
+             "serving": served["int8"]["launches"]["flash_decode_quant"],
+             "spec_generate_draft_b8": gen_b8["int8_b8"]["random_draft"][
+                 "launches"]["flash_decode_quant"]},
          "max_abs_err": worst["flash_decode_quant"],
          "ms": timing["flash_decode_quant"],
          "plain_ms": timing["flash_decode_quant_plain"],
          "bound_ms": timing["flash_decode_quant_bound"],
          "bound_by": timing["flash_decode_quant_bound_by"],
          # no single PyTorch call attends over int8 rows with scales
+         "library_ms": None},
+        # the verify block: B3/B4's query-block form (the same kernel
+        # template and TPU kernels), at T = 5, S = 768; launches of the
+        # speculative server's run (one a target layer a spec step)
+        {"name": "flash_decode_block", "route": "cuda", "source": src,
+         "replaces": "paddle_tpu/ops/pallas/flash_decode.py:68",
+         "launches": spec["server"]["launches"]["flash_decode_block"],
+         "launches_by_path": {
+             "spec_server": spec["server"]["launches"]["flash_decode_block"],
+             "spec_generate_b8": gen_b8["bf16_b8"]["random_draft"][
+                 "launches"]["flash_decode_block"],
+             "spec_slot_step_per_replay": 12},
+         "max_abs_err": worst["flash_decode_block"],
+         "ms": timing["flash_decode_block"],
+         "plain_ms": timing["flash_decode_block_plain"],
+         "bound_ms": timing["flash_decode_block_bound"],
+         "bound_by": timing["flash_decode_block_bound_by"],
+         "library_ms": timing["flash_decode_block_library"]},
+        {"name": "flash_decode_quant_block", "route": "cuda", "source": src,
+         "replaces": "paddle_tpu/ops/pallas/flash_decode.py:159",
+         "launches": gen_b8["int8_b8"]["random_draft"]["launches"][
+             "flash_decode_quant_block"],
+         "max_abs_err": worst["flash_decode_quant_block"],
+         "ms": timing["flash_decode_quant_block"],
+         "plain_ms": timing["flash_decode_quant_block_plain"],
+         "bound_ms": timing["flash_decode_quant_block_bound"],
+         "bound_by": timing["flash_decode_quant_block_bound_by"],
          "library_ms": None},
     ] + fa_kernels + _fused_kernel_records(fused_worst, fused_t, resnet,
                                            paths)

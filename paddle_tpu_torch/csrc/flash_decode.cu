@@ -1,6 +1,11 @@
 // Flash-decoding for Hopper (sm_90a): single-query attention over the KV
 // ring cache in one cluster launch per call, in a plain variant (f32 or
-// bf16 K/V) and an int8-KV variant.
+// bf16 K/V) and an int8-KV variant.  The same launch takes a block of tq
+// queries per (sequence, head) with a window end per query (speculative
+// decoding's verify block): each query row runs the one-query code at the
+// same span, chunk alignment and merge order, so it gives the bits a
+// one-query call with its window gives.  The tq queries of a row read
+// K/V separately; only their window ends differ.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_decode.py:
 //   * `_decode_kernel`, called by `flash_decode_fn` (pallas_call :118);
@@ -18,8 +23,8 @@
 // call is all latency unless the whole cache is requested at once.
 //
 // What the design does about it:
-//   * one launch: grid (B*N, C) in clusters of (1, C, 1).  The C blocks of
-//     a cluster share one (sequence*head) row; rank r takes a contiguous
+//   * one launch: grid (B*N*tq, C) in clusters of (1, C, 1).  The C blocks
+//     of a cluster share one query row; rank r takes a contiguous
 //     span of ceil(S/C) cached columns, C = min(4, ceil(S/64)) (384
 //     blocks at the served shape, all resident in the first wave);
 //   * loads go out before arithmetic: the rows of a block's span inside
@@ -247,7 +252,7 @@ decode_cluster_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                       const float* __restrict__ v_scale,
                       const int* __restrict__ start,
                       const int* __restrict__ end, TQ* __restrict__ out,
-                      int heads, int S, int span, int chunk_rows) {
+                      int heads, int tq, int S, int span, int chunk_rows) {
   using P = Plan<TKV, H>;
   constexpr int kG = P::kG, kVE = P::kVE, kVPL = P::kVPL, kEPL = P::kEPL;
   constexpr int kGroups = P::kGroups, kRPG = P::kRPG;
@@ -263,19 +268,21 @@ decode_cluster_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int nrank = static_cast<int>(cluster.num_blocks());
+  // the query row (b, n, t): q and out at row * H, K/V at (b, n)
   const int row = blockIdx.x;
+  const int bn = row / tq, t = row - bn * tq;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int gid = tid / kG, lig = tid % kG;
   const float scale = 1.f / sqrtf(static_cast<float>(H));
-  const int b = row / heads;  // the window is per batch row, all heads
+  const int b = bn / heads;  // the window is per batch row, all heads
   const int lo = max(max(start[b], 0), rank * span);
-  const int hi = min(min(end[b], S), (rank + 1) * span);
+  const int hi = min(min(end[b * tq + t], S), (rank + 1) * span);
   const int nchunks = hi > lo ? (hi - lo + chunk_rows - 1) / chunk_rows : 0;
   const int kv_bytes = chunk_rows * H * int(sizeof(TKV));
   const int sc_floats = QUANT ? P::scale_floats(chunk_rows) : 0;
   const int stage_bytes = P::stage_bytes(chunk_rows, QUANT);
-  const size_t row0 = static_cast<size_t>(row) * S;
+  const size_t row0 = static_cast<size_t>(bn) * S;
 
   // thread 0 requests chunk c: its K and V rows (and their scales, widened
   // to 4-row boundaries so that both ends sit on 16 bytes; the extra
@@ -490,7 +497,7 @@ struct Args {
   const void* start;
   const void* end;
   void* out;
-  int batch_heads, heads, S, H;
+  int batch_heads, heads, tq, S, H;
   cudaStream_t stream;
 };
 
@@ -503,7 +510,7 @@ cudaError_t launch(const Args& a) {
   const int stages =
       std::min(kStages, (span + chunk_rows - 1) / chunk_rows);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.batch_heads, C, 1);
+  cfg.gridDim = dim3(a.batch_heads * a.tq, C, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   // at most 3 x 8.7 KB: under the 48 KB that needs no opt-in
   cfg.dynamicSmemBytes = stages * P::stage_bytes(chunk_rows, QUANT);
@@ -520,15 +527,15 @@ cudaError_t launch(const Args& a) {
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.start),
-      static_cast<const int*>(a.end), static_cast<TQ*>(a.out), a.heads, a.S,
-      span, chunk_rows);
+      static_cast<const int*>(a.end), static_cast<TQ*>(a.out), a.heads, a.tq,
+      a.S, span, chunk_rows);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
 template <typename TQ, typename TKV, bool QUANT>
 cudaError_t launch_h(const Args& a) {
-  if (a.S <= 0 || a.batch_heads <= 0 || a.heads <= 0)
+  if (a.S <= 0 || a.batch_heads <= 0 || a.heads <= 0 || a.tq <= 0)
     return cudaErrorInvalidValue;
   switch (a.H) {
     case 64: return launch<TQ, TKV, 64, QUANT>(a);
@@ -541,14 +548,18 @@ cudaError_t launch_h(const Args& a) {
 }  // namespace
 
 // dtype codes of q, out (and of k, v in the plain kernel): 0 f32, 1 bf16.
+// q and out are (B, N, tq, H) and `end` is (B, tq): query t of batch row
+// b sees the columns [start[b], end[b, t]).  tq = 1 is the decode step;
+// tq > 1 the speculative verify block, each query row computed exactly as
+// a one-query call with that window would compute it.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* start,
                                    const void* end, void* out,
-                                   int batch_heads, int heads, int S, int H,
-                                   int dtype, void* stream) {
-  const Args a{q,   k,           v,     nullptr, nullptr,
-               start, end,       out,   batch_heads, heads,
-               S,   H,           static_cast<cudaStream_t>(stream)};
+                                   int batch_heads, int heads, int tq, int S,
+                                   int H, int dtype, void* stream) {
+  const Args a{q,     k,   v,           nullptr, nullptr,
+               start, end, out,         batch_heads, heads,
+               tq,    S,   H,           static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0: return launch_h<float, float, false>(a);
     case 1: return launch_h<__nv_bfloat16, __nv_bfloat16, false>(a);
@@ -559,10 +570,11 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
 extern "C" int flash_decode_quant_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* start, const void* end, void* out,
-    int batch_heads, int heads, int S, int H, int dtype, void* stream) {
+    int batch_heads, int heads, int tq, int S, int H, int dtype,
+    void* stream) {
   const Args a{q,     k,   v,           k_scale, v_scale,
                start, end, out,         batch_heads, heads,
-               S,     H,   static_cast<cudaStream_t>(stream)};
+               tq,    S,   H,           static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0: return launch_h<float, int8_t, true>(a);
     case 1: return launch_h<__nv_bfloat16, int8_t, true>(a);

@@ -137,6 +137,24 @@ define_flag("kv_cache_dtype",
             "scale planes, dequantized inside the flash-decode kernel).",
             validator=lambda v: str(v).lower() in ("bf16", "int8"))
 
+define_flag("spec_decode",
+            os.environ.get("PADDLE_TPU_SPEC_DECODE", "").lower()
+            in ("1", "true", "yes", "on"),
+            "Serve decode models through draft/target speculative "
+            "decoding (text/speculative.py) when the DecodeModelSpec "
+            "carries a draft layer: the draft proposes FLAGS_spec_gamma "
+            "tokens a step, the target verifies them in one forward, and "
+            "greedy acceptance keeps the longest agreeing prefix, so the "
+            "served tokens are plain greedy decode's.  Off by default: the "
+            "draft is then ignored (one branch at decode-runtime load).  "
+            "generate(draft_model=...) opts in regardless of the flag.  "
+            "Seeded by PADDLE_TPU_SPEC_DECODE.")
+define_flag("spec_gamma", 4,
+            "Tokens the draft proposes a speculative step (gamma): each "
+            "step runs gamma+1 draft forwards and one gamma+1-wide target "
+            "verify forward and commits 1..gamma+1 tokens.  Per-call "
+            "override: SpeculativeGenerator(gamma=...).",
+            validator=lambda v: 1 <= int(v) <= 16)
 define_flag("decode_slots",
             int(os.environ.get("PADDLE_TPU_DECODE_SLOTS", "0") or 0),
             "Slot count S of the iteration-level continuous-batching "

@@ -3,12 +3,13 @@
 Counterpart of ``paddle_tpu/nn/functional/attention.py``.  Layout is
 (B, N, S, H) inside, (B, S, N, H) at ``scaled_dot_product_attention``.
 On CUDA tensors the non-cached attention (``attention_bnsh``, the
-training path) runs the flash-attention kernels forward and backward,
-and a decode step with a contiguous validity window the flash-decoding
-kernels.  Prefill (``cached_attention`` with Tq > 1), CPU tensors and a
-trainable mask run the plain masked attention (``_sdpa_fn`` /
-``_sdpa_mask_fn``: f32 logits and softmax, probabilities cast to q's
-dtype).
+training path) runs the flash-attention kernels forward and backward;
+a decode step with a contiguous validity window, and speculative
+decoding's verify block with one window per query, the flash-decoding
+kernels.  Prefill (``cached_attention`` with Tq > 1 under a mask), CPU
+tensors and a trainable mask run the plain masked attention
+(``_sdpa_fn`` / ``_sdpa_mask_fn``: f32 logits and softmax, probabilities
+cast to q's dtype).
 """
 from __future__ import annotations
 
@@ -64,12 +65,14 @@ def _use_flash_decode(q, window):
 
 
 def _window_mask(window, S, device):
-    """The additive (B, 1, 1, S) mask of a [start, end) window."""
+    """The additive (B, 1, Tq, S) mask of a [start, end) window: ``end``
+    is [B] (Tq = 1) or one end per query [B, Tq]."""
     start, end = window
+    end = end.reshape(end.shape[0], -1)
     col = torch.arange(S, dtype=torch.int32, device=device)
-    valid = (col >= start[:, None]) & (col < end[:, None])
+    valid = (col >= start[:, None, None]) & (col < end[:, :, None])
     return torch.zeros(valid.shape, dtype=torch.float32, device=device) \
-        .masked_fill_(~valid, _NEG_INF)[:, None, None, :]
+        .masked_fill_(~valid, _NEG_INF)[:, None]
 
 
 def cached_attention(q, k, v, attn_mask=None, window=None, k_scale=None,
@@ -79,19 +82,29 @@ def cached_attention(q, k, v, attn_mask=None, window=None, k_scale=None,
 
     ``attn_mask`` is the additive validity+causality mask the caller built
     from cache_position and per-row start offsets; ``window`` is the
-    ``(start[B], end[B])`` contiguous form of the same validity that a
-    decode step (Tq == 1) passes instead.  On CUDA the flash-decoding
-    kernel takes a windowed step; otherwise the plain masked attention
-    runs, under the mask built from the window when no ``attn_mask`` was
-    given.  With ``k_scale``/``v_scale`` (FLAGS_kv_cache_dtype=int8) k/v
-    are int8 row planes: the kernel dequantizes inside its loop, the plain
-    path dequantizes the cache first.
+    ``(start[B], end)`` contiguous form of the same validity that a
+    decode step (Tq == 1, ``end[B]``) or a verify block (one end per
+    query, ``end[B, Tq]``) passes instead.  On CUDA the flash-decoding
+    kernels take a windowed step or block (the block form computes each
+    query as the step would; it raises on a shape it does not take);
+    otherwise the plain masked attention runs, under the mask built from
+    the window when no ``attn_mask`` was given.  With
+    ``k_scale``/``v_scale`` (FLAGS_kv_cache_dtype=int8) k/v are int8 row
+    planes: the kernel dequantizes inside its loop, the plain path
+    dequantizes the cache first.
     """
     if _use_flash_decode(q, window):
+        start, end = window
+        if end.ndim == 2:                    # a verify block
+            q = q.contiguous()
+            if k_scale is not None:
+                return _fd.flash_decode_quant_block(q, k, v, k_scale,
+                                                    v_scale, start, end)
+            return _fd.flash_decode_block(q, k, v, start, end)
         if k_scale is not None:
             return _fd.flash_decode_quant(q, k, v, k_scale, v_scale,
-                                          window[0], window[1])
-        return _fd.flash_decode(q, k, v, window[0], window[1])
+                                          start, end)
+        return _fd.flash_decode(q, k, v, start, end)
     if k_scale is not None:
         from ..layer.transformer import dequantize_kv_rows
         k = dequantize_kv_rows(k, k_scale, dtype=q.dtype)

@@ -19,6 +19,13 @@ left-padded per row); columns outside it are never read (the plain
 versions mask them with the finite ``-1e30``).  Layout: q ``(B, N, 1,
 H)``, k/v ``(B, N, S, H)``.
 
+``flash_decode_block`` and ``flash_decode_quant_block`` are the same
+launch over a block of ``T`` queries per (sequence, head): q ``(B, N,
+T, H)`` and an end per query, ``end[b, t]`` (speculative decoding's
+verify block, ``end = pos + t + 1``).  Each query row is computed by the
+one-query code at the same span, chunk alignment and merge order, so it
+equals a one-query call with its window bit for bit.
+
 ``flash_decode`` and ``flash_decode_quant`` launch their kernel on CUDA
 tensors and count each launch in their ``launches`` attribute.  On CPU
 tensors they compute the plain PyTorch version instead, which is also
@@ -75,15 +82,18 @@ def decode_attention_reference(q, k, v, start=None, end=None):
     """One masked softmax attention over the full cache, f32 logits and
     accumulation, probabilities cast to q's dtype before the PV product
     (the numerics contract of ``decode_attention_reference`` in JAX).
+    ``end`` is ``[B]`` (every query of a row sees one window) or ``[B,
+    Sq]`` (query ``t`` of row ``b`` sees ``[start[b], end[b, t])``).
     Returns ``(B, N, Sq, H)`` in q's dtype."""
     B, N, Sq, H = q.shape
     S = k.shape[2]
     logits = torch.einsum("bnsh,bnth->bnst", q.float(), k.float()) \
         * (1.0 / math.sqrt(H))
     lo, hi = _window(start, end, B, S, q.device)
+    hi = hi.reshape(B, -1)                       # [B, 1] or [B, Sq]
     col = torch.arange(S, dtype=torch.int32, device=q.device)
-    valid = (col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None])
-    logits = logits.masked_fill(~valid[:, None, None, :], _NEG_INF)
+    valid = (col >= lo[:, None, None]) & (col < hi[:, :, None])
+    logits = logits.masked_fill(~valid[:, None], _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnst,bnth->bnsh", probs.float(),
                         v.float()).to(q.dtype)
@@ -134,12 +144,14 @@ def _check_cuda(name, q, tensors):
                              f"{align}-byte boundary")
 
 
-def _shapes(name, q, k, v):
-    """What the kernels take: q (B, N, 1, H), k and v (B, N, S, H) with
-    S >= 1 and H in {64, 128, 256}."""
-    if q.ndim != 4 or k.ndim != 4 or q.shape[-2] != 1:
-        raise ValueError(f"{name} takes a (B, N, 1, H) query, "
-                         f"got {tuple(q.shape)}")
+def _shapes(name, q, k, v, block=False):
+    """What the kernels take: q (B, N, 1, H), or (B, N, T, H) for the
+    block form, k and v (B, N, S, H) with S >= 1 and H in {64, 128,
+    256}."""
+    if q.ndim != 4 or k.ndim != 4 or q.shape[-2] < 1 \
+            or (not block and q.shape[-2] != 1):
+        raise ValueError(f"{name} takes a (B, N, {'T' if block else 1}, "
+                         f"H) query, got {tuple(q.shape)}")
     B, N, _, H = q.shape
     if tuple(k.shape[:2]) != (B, N) or k.shape[-1] != H or k.shape[2] < 1 \
             or tuple(v.shape) != tuple(k.shape):
@@ -155,12 +167,67 @@ def _shapes(name, q, k, v):
 
 def _launch(name, fn, q, ptrs, B, N, S, H):
     out = torch.empty_like(q)
-    rc = fn(*ptrs, out.data_ptr(), B * N, N, S, H, _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+    rc = fn(*ptrs, out.data_ptr(), B * N, N, q.shape[2], S, H,
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
     return out
+
+
+def _block_ends(name, end, B, T, device):
+    """The block form's per-query window ends: int32 ``[B, T]``."""
+    if end is None:
+        raise ValueError(f"{name}: the block form needs per-query ends "
+                         "[B, T]")
+    hi = torch.as_tensor(end, dtype=torch.int32, device=device)
+    if tuple(hi.shape) != (B, T):
+        raise ValueError(f"{name}: end must be {(B, T)}, got "
+                         f"{tuple(hi.shape)}")
+    return hi
+
+
+def _decode(name, q, k, v, start, end, block):
+    B, N, S, H = _shapes(name, q, k, v, block)
+    lo, hi = _window(start, None if block else end, B, S, q.device)
+    if block:
+        hi = _block_ends(name, end, B, q.shape[2], q.device)
+    _check_cuda(name, q,
+                [("q", q, tuple(_DTYPE_CODE)), ("k", k, (q.dtype,)),
+                 ("v", v, (q.dtype,)), ("start", lo, (torch.int32,)),
+                 ("end", hi, (torch.int32,))])
+    lib = _build.library("flash_decode")
+    return _launch(name, lib.flash_decode_launch, q,
+                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr()], B, N, S, H)
+
+
+def _decode_quant(name, q, k, v, k_scale, v_scale, start, end, block):
+    B, N, S, H = _shapes(name, q, k, v, block)
+    if tuple(k_scale.shape) != (B, N, S, 1) \
+            or tuple(v_scale.shape) != (B, N, S, 1):
+        raise ValueError(f"{name}: scales must be "
+                         f"{(B, N, S, 1)}, got {tuple(k_scale.shape)} and "
+                         f"{tuple(v_scale.shape)}")
+    lo, hi = _window(start, None if block else end, B, S, q.device)
+    if block:
+        hi = _block_ends(name, end, B, q.shape[2], q.device)
+    _check_cuda(name, q,
+                [("q", q, tuple(_DTYPE_CODE)), ("k", k, (torch.int8,)),
+                 ("v", v, (torch.int8,)),
+                 ("k_scale", k_scale, (torch.float32,)),
+                 ("v_scale", v_scale, (torch.float32,)),
+                 ("start", lo, (torch.int32,)), ("end", hi, (torch.int32,))])
+    lib = _build.library("flash_decode")
+    return _launch(name, lib.flash_decode_quant_launch, q,
+                   [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    k_scale.data_ptr(), v_scale.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr()], B, N, S, H)
+
+
+def _count(fn):
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def flash_decode(q, k, v, start=None, end=None):
@@ -170,17 +237,8 @@ def flash_decode(q, k, v, start=None, end=None):
     1, H)`` in q's dtype."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, start, end)
-    B, N, S, H = _shapes("flash_decode", q, k, v)
-    lo, hi = _window(start, end, B, S, q.device)
-    _check_cuda("flash_decode", q,
-                [("q", q, tuple(_DTYPE_CODE)), ("k", k, (q.dtype,)), ("v", v, (q.dtype,)),
-                 ("start", lo, (torch.int32,)), ("end", hi, (torch.int32,))])
-    lib = _build.library("flash_decode")
-    out = _launch("flash_decode", lib.flash_decode_launch, q,
-                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
-                   hi.data_ptr()], B, N, S, H)
-    with _COUNT_LOCK:
-        flash_decode.launches += 1
+    out = _decode("flash_decode", q, k, v, start, end, block=False)
+    _count(flash_decode)
     return out
 
 
@@ -197,39 +255,53 @@ def flash_decode_quant(q, k, v, k_scale, v_scale, start=None, end=None):
     if q.device.type == "cpu":
         return flash_decode_quant_plain(q, k, v, k_scale, v_scale, start,
                                         end)
-    B, N, S, H = _shapes("flash_decode_quant", q, k, v)
-    if tuple(k_scale.shape) != (B, N, S, 1) \
-            or tuple(v_scale.shape) != (B, N, S, 1):
-        raise ValueError("flash_decode_quant: scales must be "
-                         f"{(B, N, S, 1)}, got {tuple(k_scale.shape)} and "
-                         f"{tuple(v_scale.shape)}")
-    lo, hi = _window(start, end, B, S, q.device)
-    _check_cuda("flash_decode_quant", q,
-                [("q", q, tuple(_DTYPE_CODE)), ("k", k, (torch.int8,)),
-                 ("v", v, (torch.int8,)),
-                 ("k_scale", k_scale, (torch.float32,)),
-                 ("v_scale", v_scale, (torch.float32,)),
-                 ("start", lo, (torch.int32,)), ("end", hi, (torch.int32,))])
-    lib = _build.library("flash_decode")
-    out = _launch("flash_decode_quant", lib.flash_decode_quant_launch, q,
-                  [q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   k_scale.data_ptr(), v_scale.data_ptr(), lo.data_ptr(),
-                   hi.data_ptr()], B, N, S, H)
-    with _COUNT_LOCK:
-        flash_decode_quant.launches += 1
+    out = _decode_quant("flash_decode_quant", q, k, v, k_scale, v_scale,
+                        start, end, block=False)
+    _count(flash_decode_quant)
     return out
 
 
 flash_decode_quant.launches = 0
 
 
+def flash_decode_block(q, k, v, start, end):
+    """:func:`flash_decode` over a block of queries: q ``(B, N, T, H)``
+    contiguous, ``end`` int32 ``[B, T]`` (query ``t`` of row ``b`` sees
+    ``[start[b], end[b, t])``).  One launch; each query row equals a
+    one-query :func:`flash_decode` call with its window, bit for bit.
+    Returns ``(B, N, T, H)`` in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, start, end)
+    out = _decode("flash_decode_block", q, k, v, start, end, block=True)
+    _count(flash_decode_block)
+    return out
+
+
+flash_decode_block.launches = 0
+
+
+def flash_decode_quant_block(q, k, v, k_scale, v_scale, start, end):
+    """:func:`flash_decode_quant` over a block of queries, as
+    :func:`flash_decode_block`."""
+    if q.device.type == "cpu":
+        return flash_decode_quant_plain(q, k, v, k_scale, v_scale, start,
+                                        end)
+    out = _decode_quant("flash_decode_quant_block", q, k, v, k_scale,
+                        v_scale, start, end, block=True)
+    _count(flash_decode_quant_block)
+    return out
+
+
+flash_decode_quant_block.launches = 0
+
+
 def launch_counts(reset=False):
     """Every launch count of this module (and reset them to 0)."""
-    fns = (flash_decode, flash_decode_quant)
+    fns = (flash_decode, flash_decode_quant, flash_decode_block,
+           flash_decode_quant_block)
     with _COUNT_LOCK:
         out = {f.__name__: f.launches for f in fns}
         if reset:
             for f in fns:
                 f.launches = 0
     return out
-

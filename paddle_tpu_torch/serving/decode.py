@@ -14,6 +14,13 @@ Left-padding makes results batch-invariant: a row's attention window is
 ``[P - len, pos)`` whatever rows share its batch, so a served greedy
 decode equals a batch-1 ``generate()`` of the same prompt token for token
 (the admission oracle).
+
+A spec with a ``draft_layer`` serves through speculative decoding under
+``FLAGS_spec_decode`` (text/speculative.py; in slot mode the slot loop's
+speculative step): the served tokens stay those of plain greedy decode.
+The JAX package's acceptance metrics and traced draft/verify spans wait
+with the rest of ``profiler/`` (ROADMAP A13); ``Server.stats()`` carries
+the acceptance counters.
 """
 from __future__ import annotations
 
@@ -38,7 +45,12 @@ __all__ = ["DecodeModelSpec", "DecodeRequest"]
 @dataclass
 class DecodeModelSpec:
     """One served decode model: a live layer implementing the
-    init_cache/forward_cached contract (text.models.GPTModel)."""
+    init_cache/forward_cached contract (text.models.GPTModel).
+
+    ``draft_layer`` makes the spec a draft/target pair: under
+    ``FLAGS_spec_decode`` the runtime serves through speculative decoding
+    with ``gamma`` proposals a step (default FLAGS_spec_gamma).  With the
+    flag off the draft is ignored."""
 
     name: str
     layer: Any
@@ -47,6 +59,8 @@ class DecodeModelSpec:
     max_new_tokens: int = 16
     max_len: Optional[int] = None
     eos_token_id: Optional[int] = None
+    draft_layer: Any = None
+    gamma: Optional[int] = None
 
 
 @dataclass
@@ -83,6 +97,7 @@ class _DecodeRuntime:
         self.gen = None
         self._warmed = set()                # {(B, P, C)}
         self._loop = None                   # the SlotLoop in slot mode
+        self._spec_base = None              # acceptance totals at warm-up
         self.prefix_cache = None
         self.latency = LatencyWindow()
         self.ttft = LatencyWindow()
@@ -101,9 +116,16 @@ class _DecodeRuntime:
     # -- loading + warm-up ---------------------------------------------------
     def load(self):
         from ..text.generation import Generator
-        self.gen = Generator(self.spec.layer,
-                             seq_buckets=self.spec.seq_buckets,
-                             max_len=self.spec.max_len, device=self.device)
+        kw = dict(seq_buckets=self.spec.seq_buckets,
+                  max_len=self.spec.max_len, device=self.device)
+        if self.spec.draft_layer is not None \
+                and bool(_flags.flag("spec_decode")):
+            from ..text.speculative import SpeculativeGenerator
+            self.gen = SpeculativeGenerator(self.spec.layer,
+                                            self.spec.draft_layer,
+                                            gamma=self.spec.gamma, **kw)
+        else:
+            self.gen = Generator(self.spec.layer, **kw)
         # every prompt bucket must leave room for max_new_tokens in some
         # cache bucket — refuse at registration time, not under traffic
         self._plan = []
@@ -127,7 +149,8 @@ class _DecodeRuntime:
         self.chunk_width = int(_flags.flag("prefill_chunk"))
         if self.slots:
             self._slot_cache = max(c for _, c in self._plan)
-            span = self._slot_cache - self.steps
+            gamma = self.gen.gamma if self.speculative else 0
+            span = self._slot_cache - self.steps - gamma
             T = self.chunk_width
             # largest admissible prompt: its chunk-padded span plus the
             # full token budget must fit ONE ring session
@@ -136,7 +159,8 @@ class _DecodeRuntime:
                 raise PreconditionNotMetError(
                     f"decode model {self.name!r}: slot cache "
                     f"{self._slot_cache} leaves no room for a prompt "
-                    f"chunk (chunk={T}, max_new_tokens={self.steps})")
+                    f"chunk (chunk={T}, max_new_tokens={self.steps}, "
+                    f"gamma={gamma})")
 
     def _warmup_slots(self):
         """Slot-mode warm-up: build (on the card: capture) the step and
@@ -175,10 +199,14 @@ class _DecodeRuntime:
                 ids = np.zeros((B, P), np.int32)
                 start = np.full((B,), P - 1, np.int32)
                 cache, logits0 = self.gen.prefill(ids, start, C)
-                self.gen.decode(cache, logits0, start, P, self.steps, eos)
+                self.gen.decode(cache, logits0, start, P, self.steps,
+                                eos_token_id=eos)
                 self._warmed.add((B, P, C))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.speculative:
+            # acceptance counts from here: the warm-up's are not traffic
+            self._spec_base = dict(self.gen.totals)
         self.admitted = True
 
     # -- traffic -------------------------------------------------------------
@@ -240,7 +268,7 @@ class _DecodeRuntime:
         for r in batch.requests:
             r.t_first = t_first
         toks = self.gen.decode(cache, logits0, start, P, self.steps,
-                               self.spec.eos_token_id)
+                               eos_token_id=self.spec.eos_token_id)
         return toks.cpu().numpy()
 
     def _execute_slots(self, batch):
@@ -260,6 +288,27 @@ class _DecodeRuntime:
             if err is not None and not r.future.done():
                 r.future.set_exception(err)
         return out
+
+    @property
+    def speculative(self):
+        return getattr(self.gen, "_draft", None) is not None
+
+    def spec_stats(self):
+        """Acceptance of the served traffic (since warm-up): the slot
+        loop's counters in slot mode, the generator's otherwise; None for
+        a plain runtime."""
+        if not self.speculative:
+            return None
+        if self._loop is not None:
+            st = self._loop.stats()
+            acc, prop = st["spec_accepted"], st["spec_proposed"]
+        else:
+            tot, base = dict(self.gen.totals), self._spec_base or {}
+            acc = tot["accepted"] - base.get("accepted", 0)
+            prop = tot["proposed"] - base.get("proposed", 0)
+        return {"spec_accepted": acc, "spec_proposed": prop,
+                "spec_acceptance_rate": round(acc / prop, 4) if prop
+                else 0.0}
 
     def slot_signals(self):
         """Token-level slot accounting for Server.signals(), or None on

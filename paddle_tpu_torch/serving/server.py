@@ -287,6 +287,7 @@ class Server:
             "steady_compiles": c["steady_compiles"],
             **({"slot_loop": rt._loop.stats()}
                if rt._loop is not None else {}),
+            **(rt.spec_stats() or {}),
         }
 
     def signals(self) -> dict:

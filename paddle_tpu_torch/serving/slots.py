@@ -1,6 +1,7 @@
 """Iteration-level continuous batching: the slot-based decode loop.
 
-Counterpart of ``paddle_tpu/serving/slots.py`` for the plain Generator.
+Counterpart of ``paddle_tpu/serving/slots.py``, for the plain and the
+speculative Generator.
 The run-to-completion decode path (serving/decode.py ``execute``) runs
 every batch to its last step: a 5-token request waits on its 500-token
 neighbor and arrivals queue until the whole batch drains.  This module
@@ -8,7 +9,8 @@ hoists the token loop onto the HOST (Orca-style iteration-level
 scheduling) over the Generator's two slot programs per (slot count,
 cache length):
 
-  * ``step_exec(S, C)``: one greedy token step for all ``S`` slot rows,
+  * ``step_exec(S, C)``: one greedy token step for all ``S`` slot rows
+    (or one speculative propose/verify/accept step under a draft pair),
     one captured CUDA graph on the card (text/graphs.py);
   * ``prefill_chunk``: one Sarathi-style prefill chunk, ``T``
     prompt tokens of ONE joining row, interleaved between decode steps
@@ -44,18 +46,21 @@ per-request ``generate()`` of the same prompt:
     act-Pb+(k+1)T)`` and every step from that iteration on writes
     columns ``>= act-n+k+1``; overlap would need ``k >= n``).  The row
     activates exactly when the shared ``pos`` reaches ``act``;
+  * **speculative strides** commit 1..gamma+1 tokens a step; the host
+    clamps a step's commit (``max_commit``) so the position lands
+    exactly on the nearest planned activation;
   * **bounded ring sessions**: the validity window compares absolute
     columns, so ``pos`` must stay inside ``[0, C)``: a request admits
-    only if ``act + max_new`` fits, and when the FIFO head cannot fit
-    the loop drains and restarts the session at ``pos = 0``.
+    only if ``act + max_new`` (+ gamma, the verify block's overshoot)
+    fits, and when the FIFO head cannot fit the loop drains and restarts
+    the session at ``pos = 0``.
 
 Host-side lock-and-condvar concurrency exactly like scheduler.py; the
 driver thread owns every device dispatch.  Token-level occupancy
 accounting (an EWMA of generating rows over ``S``, joined/retired
 counters, a TTFT window) feeds ``Server.stats()`` and ``signals()``.
 
-Not ported yet: the speculative step (ROADMAP A3) and parked sessions
-(ROADMAP A4); a speculative generator or a session store raises
+Not ported yet: parked sessions (ROADMAP A4); a session store raises
 ``UnimplementedError``.  A ``session_id`` is accepted and ignored, as
 the JAX loop ignores it without a session store.
 """
@@ -123,10 +128,6 @@ class SlotLoop:
         if slots < 1:
             raise InvalidArgumentError(
                 f"slot loop needs >= 1 slot, got {slots}")
-        if getattr(gen, "_draft", None) is not None:
-            raise UnimplementedError(
-                "the slot loop's speculative step is not ported yet "
-                "(ROADMAP A3): serve the plain Generator")
         if session_store is not None:
             raise UnimplementedError(
                 "parked sessions (serving/sessions.py) are not ported yet "
@@ -137,6 +138,8 @@ class SlotLoop:
         self.T = int(chunk)
         self._end = -1 if eos_token_id is None else int(eos_token_id)
         self._model = model
+        self._spec = getattr(gen, "_draft", None) is not None
+        self._gamma = int(gen.gamma) if self._spec else 0
         # built once here (on the card: captured); every later dispatch
         # is a plain call, so steady traffic builds nothing.  The step
         # owns the cache planes: this loop holds it until close()
@@ -157,6 +160,7 @@ class SlotLoop:
                          "restore_pushes": 0}
         self._occupancy = 0.0               # EWMA of generating/S
         self._ttft = LatencyWindow(maxlen=512)
+        self._accepted = self._proposed = 0   # speculative acceptance
 
     # -- session state -------------------------------------------------------
     def _reset_session(self):
@@ -168,12 +172,14 @@ class SlotLoop:
         self._start = np.zeros((self.S,), np.int32)
         self._finished = np.ones((self.S,), bool)
         self._active = np.zeros((self.S,), bool)
+        # the speculative step's input: each row's next token
+        self._cur = np.zeros((self.S,), np.int32)
 
     def _need(self, prompt_len: int, max_new: int) -> int:
         """Ring columns a request consumes: padded chunk span + its own
-        token budget."""
+        token budget (+ the speculative verify block's overshoot)."""
         n_chunks = -(-int(prompt_len) // self.T)
-        return n_chunks * self.T + int(max_new)
+        return n_chunks * self.T + int(max_new) + self._gamma
 
     # -- producer ------------------------------------------------------------
     def submit(self, prompt, max_new: int,
@@ -280,7 +286,8 @@ class SlotLoop:
             if not self._pending or slot.state != _EMPTY:
                 continue
             head = self._pending[0]
-            if self._plan_act(head.prompt.size) + head.max_new > self.C:
+            if self._plan_act(head.prompt.size) + head.max_new \
+                    + self._gamma > self.C:
                 if all(s.state == _EMPTY for s in self._slots) \
                         and self.pos > 0:
                     # whole loop idle: restart the ring session (windows
@@ -402,7 +409,12 @@ class SlotLoop:
             self._start[i] = slot.start
             self._finished[i] = False
             self._active[i] = True
-            self._step.set_logits(i, slot._act_logits)
+            if self._spec:
+                # the first committed token: the target's argmax over the
+                # final chunk's logits
+                self._cur[i] = int(slot._act_logits.argmax())
+            else:
+                self._step.set_logits(i, slot._act_logits)
             slot._act_logits = None
             slot.state = _GEN
             self._publish_prefix(i, slot)
@@ -424,7 +436,10 @@ class SlotLoop:
         with self._cond:
             self._occupancy = ratio if self.counters["steps"] == 0 \
                 else 0.9 * self._occupancy + 0.1 * ratio
-        self._plain_step(gen_slots)
+        if self._spec:
+            self._spec_step(gen_slots)
+        else:
+            self._plain_step(gen_slots)
         self.counters["steps"] += 1
 
     def _plain_step(self, gen_slots):
@@ -434,6 +449,27 @@ class SlotLoop:
         for i in gen_slots:
             slot = self._slots[i]
             self._emit(slot, [int(tok[i])])
+            if self._finished[i] or len(slot.emitted) >= slot.req.max_new:
+                self._retire(i)
+
+    def _spec_step(self, gen_slots):
+        # clamp the stride so the commit lands exactly on the nearest
+        # activation: a prefilling row's window must start the moment the
+        # position reaches its planned column (every remaining PREFILL
+        # act is > pos here: rows AT pos activated in this iteration)
+        boundaries = [s.act - self.pos
+                      for s in self._slots if s.state == _PREFILL]
+        mc = min([self._gamma + 1] + [b for b in boundaries if b > 0])
+        self._cur, self._finished, e, k, n = self._step(
+            self._start, self._finished, self._active, self._cur,
+            self.pos, mc)
+        self.pos += k
+        with self._cond:
+            self._accepted += n
+            self._proposed += self._gamma
+        for i in gen_slots:
+            slot = self._slots[i]
+            self._emit(slot, [int(t) for t in e[i, :k]])
             if self._finished[i] or len(slot.emitted) >= slot.req.max_new:
                 self._retire(i)
 
@@ -470,6 +506,7 @@ class SlotLoop:
         slot.emitted = []
         self._finished[i] = True
         self._active[i] = False
+        self._cur[i] = 0
         self.counters["retired"] += 1
 
     def reset_stats(self):
@@ -481,6 +518,7 @@ class SlotLoop:
                 self.counters[k] = 0
             self._occupancy = 0.0
             self._ttft = LatencyWindow(maxlen=512)
+            self._accepted = self._proposed = 0
 
     # -- observability -------------------------------------------------------
     def signals(self) -> dict:
@@ -505,9 +543,15 @@ class SlotLoop:
             c = dict(self.counters)
             occ = self._occupancy
             ttft = self._ttft.snapshot()
+            acc, prop = self._accepted, self._proposed
         out = {"slots": self.S, "cache": self.C, "chunk": self.T,
                "occupancy_ewma": round(occ, 4), **c}
         if ttft["count"]:
             out["ttft_p50_ms"] = round(ttft["p50_ms"], 3)
             out["ttft_p99_ms"] = round(ttft["p99_ms"], 3)
+        if self._spec:
+            out["spec_accepted"] = acc
+            out["spec_proposed"] = prop
+            if prop:
+                out["spec_acceptance_rate"] = round(acc / prop, 4)
         return out

@@ -1,7 +1,10 @@
-"""Autoregressive greedy decoding over a static-shape KV ring cache.
+"""Autoregressive greedy and beam decoding over a static-shape KV ring
+cache.
 
 Counterpart of ``paddle_tpu/text/generation.py`` (``Generator`` and
-``generate()``, greedy with eos).  The shape discipline is the same:
+``generate()``: greedy with eos, beam search, and, with a draft model,
+speculative decoding through ``text/speculative.py``).  The shape
+discipline is the same:
 
   * prompts pad LEFT to a prefill bucket ``P`` (FLAGS_decode_buckets),
     so row ``b``'s valid cache window is the contiguous ``[P - len_b,
@@ -107,16 +110,24 @@ class Generator:
             # EVERY row
             return cache, logits[:, -1, :].float()
 
-    def decode(self, cache, logits0, start, pos0, steps,
+    def decode(self, cache, logits0, start, pos0, steps, beam_size=1,
                eos_token_id=None):
         """Greedy decoding from a prefill result: ``steps`` tokens per row,
-        returned as int32 [B, steps] on the generator's device."""
+        returned as int32 [B, steps] on the generator's device.  With
+        ``beam_size`` K > 1, beam search: (paths int32 [B, K, steps],
+        scores f32 [B, K])."""
         # end == -1 encodes "no eos": argmax tokens are always >= 0, so
         # the finished mask never trips
         end = -1 if eos_token_id is None else int(eos_token_id)
+        beam = int(beam_size)
+        if beam < 1:
+            raise InvalidArgumentError(f"beam_size must be >= 1, got {beam}")
         with torch.inference_mode():
             start = torch.as_tensor(np.asarray(start, np.int32),
                                     device=self.device)
+            if beam > 1:
+                return self._beam_decode(cache, logits0, start, int(pos0),
+                                         int(steps), beam, end)
             logits = logits0
             finished = torch.zeros(logits.shape[0], dtype=torch.bool,
                                    device=self.device)
@@ -130,6 +141,41 @@ class Generator:
                 logits = nlogits[:, 0].float()
                 toks.append(tok)
             return torch.stack(toks, dim=1)
+
+    def _beam_decode(self, cache, logits0, start, pos0, steps, K, end):
+        """Beam search over ``K`` beam rows per prompt row, as the JAX
+        package's ``beam_decode``: the prefill cache repeats K times, only
+        beam 0 is live at the first step, and every step selects with
+        :func:`ops.decode.beam_search_step`, reorders the cache rows by
+        the parents, and runs one ``B*K``-row forward."""
+        from ..ops.decode import (beam_parent_gather, beam_search_step,
+                                  gather_tree)
+        B = logits0.shape[0]
+        cache = [type(c)(*(p.repeat_interleave(K, dim=0) for p in c))
+                 for c in cache]
+        start_k = start.repeat_interleave(K)
+        logp = torch.log_softmax(logits0.float(), dim=-1)
+        V = logp.shape[-1]
+        logp = logp[:, None, :].expand(B, K, V)
+        scores = torch.where(torch.arange(K, device=self.device) > 0,
+                             -1e9, 0.0).float().expand(B, K)
+        pre = torch.full((B, K), end - 1, dtype=torch.int32,
+                         device=self.device)             # != end: all live
+        all_ids, all_parents = [], []
+        for i in range(steps):
+            pre, scores, parents = beam_search_step(
+                pre, scores, logp, beam_size=K, end_id=end,
+                is_accumulated=True)
+            cache = [type(c)(*(beam_parent_gather(p, parents) for p in c))
+                     for c in cache]
+            nlogits, cache = self._layer.forward_cached(
+                pre.reshape(B * K, 1), cache, pos0 + i, start_k)
+            logp = torch.log_softmax(nlogits[:, 0].float(), dim=-1) \
+                .reshape(B, K, V)
+            all_ids.append(pre)
+            all_parents.append(parents)
+        paths = gather_tree(torch.stack(all_ids), torch.stack(all_parents))
+        return paths.permute(1, 2, 0).contiguous(), scores
 
     # -- slot-loop programs (serving/slots.py) -------------------------------
     def _vocab_size(self):
@@ -258,12 +304,14 @@ class Generator:
         return ids, start
 
     def generate(self, input_ids, lengths=None, max_new_tokens=32,
-                 eos_token_id=None):
-        """Greedy decoding of a batch of prompts.
+                 beam_size=1, eos_token_id=None):
+        """Greedy (or beam) decoding of a batch of prompts.
 
         ``input_ids`` [B, L] (right-padded; ``lengths`` [B] gives the true
-        prompt lengths, default L).  Returns generated ids int32
-        [B, max_new_tokens] on the generator's device."""
+        prompt lengths, default L).  Greedy returns generated ids int32
+        [B, max_new_tokens] on the generator's device; beam returns
+        (ids int32 [B, beam_size, max_new_tokens], scores f32 [B,
+        beam_size])."""
         ids_np = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
                             else input_ids)
         if ids_np.ndim != 2:
@@ -293,14 +341,27 @@ class Generator:
             [ids_np[b, :lens[b]] for b in range(B)], P)
         cache, logits0 = self.prefill(ids, start, C)
         return self.decode(cache, logits0, start, P, steps,
-                           eos_token_id=eos_token_id)
+                           beam_size=beam_size, eos_token_id=eos_token_id)
 
     __call__ = generate
 
 
-def generate(layer, input_ids, **kwargs):
+def generate(layer, input_ids, draft_model=None, **kwargs):
     """Module-level convenience: build (and memoize on the layer) a
-    Generator on the layer's own device, then decode."""
+    Generator on the layer's own device, then decode.  With
+    ``draft_model`` (a smaller layer with the same init_cache /
+    forward_cached contract and vocabulary) the call runs draft/target
+    speculative decoding instead: the tokens of plain greedy decode, at
+    up to gamma+1 tokens per target forward (text/speculative.py)."""
+    if draft_model is not None:
+        from .speculative import SpeculativeGenerator
+        gen = getattr(layer, "_paddle_tpu_torch_spec_generator", None)
+        if gen is None or gen._layer is not layer \
+                or gen._draft is not draft_model:
+            gen = SpeculativeGenerator(layer, draft_model,
+                                       device=module_device(layer))
+            layer._paddle_tpu_torch_spec_generator = gen
+        return gen.generate(input_ids, **kwargs)
     gen = getattr(layer, "_paddle_tpu_torch_generator", None)
     if gen is None or gen._layer is not layer:
         gen = Generator(layer, device=module_device(layer))

@@ -127,7 +127,7 @@ class GPTModel(nn.Module):
             batch, max_len, w.dtype if dtype is None else dtype, w.device)
 
     def forward_cached(self, input_ids, cache, cache_position,
-                       start_positions):
+                       start_positions, verify=False):
         """One incremental step over the ring cache.
 
         ``input_ids`` [B, T]: the LEFT-padded prompt at prefill, one token
@@ -139,7 +139,12 @@ class GPTModel(nn.Module):
         position nothing is read back to the host (the slot loop's step
         is captured in a CUDA graph, ``text/graphs.py``) and the result
         is the int path's, bit for bit.  The cache planes are updated in
-        place.  Returns (logits [B, T, V], cache).
+        place.  ``verify`` marks a block of ``T`` tokens as speculative
+        decoding's verify block: its attention takes one window per
+        query, ``[start, pos + t + 1)``, which on the card runs each
+        query through the decode kernel exactly as a one-token step at
+        that position would (text/speculative.py); the chunked prefill
+        keeps the masked path.  Returns (logits [B, T, V], cache).
         """
         b, t = input_ids.shape
         dev = input_ids.device
@@ -156,7 +161,11 @@ class GPTModel(nn.Module):
             0, self.config.max_position_embeddings - 1)
         h = self.drop(self.wte(input_ids) + self.wpe(pos_ids))
         mask = window = None
-        if t == 1:
+        if verify:
+            # each query's window ends after its own column, exactly the
+            # window of a one-token step at pos + t
+            window = (start, (row + 1)[None, :].expand(b, t).contiguous())
+        elif t == 1:
             # decode step: validity is the contiguous [start, pos+1)
             # window; the kernel takes it as is, and the plain path
             # builds its mask from it only when it runs
@@ -177,10 +186,11 @@ class GPTModel(nn.Module):
         return self._logits(h, rows_invariant=True), new_cache
 
     def generate(self, input_ids, lengths=None, max_new_tokens=32,
-                 eos_token_id=None):
-        """Greedy decoding through ``text.generation`` (prefill, then one
-        step per token over the ring cache)."""
+                 beam_size=1, eos_token_id=None, draft_model=None):
+        """Greedy (or beam) decoding through ``text.generation`` (prefill,
+        then one step per token over the ring cache); with
+        ``draft_model``, speculative decoding (text/speculative.py)."""
         from ..generation import generate as _generate
-        return _generate(self, input_ids, lengths=lengths,
-                         max_new_tokens=max_new_tokens,
-                         eos_token_id=eos_token_id)
+        return _generate(self, input_ids, draft_model=draft_model,
+                         lengths=lengths, max_new_tokens=max_new_tokens,
+                         beam_size=beam_size, eos_token_id=eos_token_id)

@@ -717,3 +717,173 @@ def test_captured_slot_step_reads_activation_logits(cuda):
     assert tok_c[3] == tok_e[3] == 321
     np.testing.assert_array_equal(tok_c, tok_e)
     _assert_same_state(cap, eager)
+
+
+# -- the verify block: B3/B4's query-block form -------------------------------
+
+@pytest.mark.parametrize("S", [256, 768])
+@pytest.mark.parametrize("T", [2, 5])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_block_form_equals_single_query_launches(cuda, kind, T, S):
+    """Each query row of one block launch equals a one-query launch with
+    its window, bit for bit, over full, ragged and late windows (the last
+    query's end past S, as at a ring's end); and the block stays within
+    the one-query limits of its plain version."""
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    B, N, H = 3, 4, 64
+    rng = np.random.RandomState(S + T)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to(cuda, dtype)
+               for shape in ((B, N, T, H), (B, N, S, H), (B, N, S, H)))
+    k8, ks = quantize_kv_rows(k)
+    v8, vs = quantize_kv_rows(v)
+    start = torch.tensor([0, 37, S // 2], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([S - T, S // 2, S - 2], dtype=torch.int32,
+                       device=cuda)
+    end = (pos[:, None] + 1 + torch.arange(T, device=cuda)).int()
+    if kind == "int8":
+        fn = lambda qq, e: fd.flash_decode_quant_block(qq, k8, v8, ks, vs,
+                                                       start, e)
+        one = lambda qq, e: fd.flash_decode_quant(qq, k8, v8, ks, vs, start,
+                                                  e)
+        plain = fd.flash_decode_quant_plain(q.float(), k8, v8, ks, vs,
+                                            start, end)
+        counter = fd.flash_decode_quant_block
+    else:
+        fn = lambda qq, e: fd.flash_decode_block(qq, k, v, start, e)
+        one = lambda qq, e: fd.flash_decode(qq, k, v, start, e)
+        plain = fd.flash_decode_plain(q.float(), k.float(), v.float(),
+                                      start, end)
+        counter = fd.flash_decode_block
+    n0 = counter.launches
+    got = fn(q, end)
+    assert counter.launches == n0 + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    for t in range(T):
+        ref = one(q[:, :, t:t + 1].contiguous(), end[:, t].contiguous())
+        assert torch.equal(got[:, :, t:t + 1], ref), t
+    atol = 1e-5 if kind == "f32" else 1e-2
+    torch.testing.assert_close(got.float(), plain, atol=atol, rtol=0)
+
+
+def test_block_form_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 2, 3, 64, device=cuda)
+    k = torch.zeros(2, 2, 64, 64, device=cuda)
+    start = torch.zeros(2, dtype=torch.int32, device=cuda)
+    end = torch.ones(2, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="end must be"):
+        fd.flash_decode_block(q, k, k, start, end[:, :2])
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.flash_decode_block(q.transpose(1, 2).contiguous().transpose(1, 2),
+                              k, k, start, end)
+    with pytest.raises(ValueError, match="1, H"):
+        fd.flash_decode(q, k, k, start, end[:, 0].contiguous())
+
+
+# -- speculative decoding on the card -----------------------------------------
+
+def _spec_pair(dev):
+    """The 12-layer narrow target of the slot tests and a 4-layer draft,
+    bf16."""
+    from paddle_tpu_torch.text.models import GPTConfig, GPTModel
+    draft = GPTModel(GPTConfig.tiny(vocab_size=512, hidden_size=128,
+                                    layers=4, heads=2, seq=1024),
+                     device=dev, dtype=torch.bfloat16)
+    draft.init_weights(torch.Generator(device=dev).manual_seed(1))
+    return _slot_model(dev), draft.eval()
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_spec_decode_equals_greedy_at_the_same_cache(cuda, kv):
+    """Speculative tokens equal greedy tokens at the same cache length,
+    bit for bit (the verify block rounds as the step does), and a
+    self-draft accepts every proposal."""
+    from paddle_tpu_torch.framework.flags import flags_restore, \
+        flags_snapshot, set_flags
+    from paddle_tpu_torch.text.generation import Generator
+    from paddle_tpu_torch.text.speculative import SpeculativeGenerator
+    snap = flags_snapshot()
+    try:
+        set_flags({"FLAGS_kv_cache_dtype": kv})
+        target, draft = _spec_pair(cuda)
+        ids = np.random.RandomState(0).randint(1, 512, (4, 40))
+        lens = np.array([40, 33, 7, 21])
+        for d in (draft, target):
+            spec = SpeculativeGenerator(target, d, gamma=4,
+                                        seq_buckets=(64, 128), max_len=128)
+            plain = Generator(target, seq_buckets=(64, 128), max_len=128)
+            P = plain.prefill_bucket(40)
+            C = spec.cache_bucket(P, 48)
+            pids, st = plain.pack_prompts(
+                [ids[b, :lens[b]] for b in range(4)], P)
+            want = plain.decode(*plain.prefill(pids, st, C), st, P, 48)
+            got = spec.decode(*spec.prefill(pids, st, C), st, P, 48)
+            assert torch.equal(got, want)
+            if d is target:
+                assert spec.last_stats["acceptance_rate"] == 1.0
+                assert spec.last_stats["spec_steps"] == -(-48 // 5)
+    finally:
+        flags_restore(snap)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_spec_step_equals_eager_step(cuda, kv):
+    """The captured speculative step against the same step run eagerly,
+    from one state, the host rewriting its vectors between steps: both
+    caches' planes, e, cur, finished, ncommit and n bit-equal; a replay
+    runs no wrapper, and a device trace shows 4 x 5 + 12 = 32 decode
+    kernels a replay (the draft's 5 one-token forwards, one verify
+    block)."""
+    from paddle_tpu_torch.framework.flags import flags_restore, \
+        flags_snapshot, set_flags
+    from paddle_tpu_torch.text.graphs import CapturedSpecSlotStep, \
+        SpecSlotStep
+    from paddle_tpu_torch.text.speculative import SpeculativeGenerator
+    S, C = 8, 768
+    snap = flags_snapshot()
+    try:
+        set_flags({"FLAGS_kv_cache_dtype": kv})
+        target, draft = _spec_pair(cuda)
+        gen = SpeculativeGenerator(target, draft, gamma=4,
+                                   seq_buckets=(C,), max_len=C)
+        cap = gen.step_exec(S, C)
+        eager = SpecSlotStep(gen, S, C, -1)
+    finally:
+        flags_restore(snap)
+    assert isinstance(cap, CapturedSpecSlotStep) and cap.captured
+    g = torch.Generator(device=cuda).manual_seed(C)
+    with torch.inference_mode():
+        for p in cap.planes():
+            if p.dtype == torch.int8:
+                p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                      device=cuda))
+            elif p.shape[-1] == 1:
+                p.copy_(torch.rand(p.shape, generator=g, device=cuda)
+                        * 0.02 + 1e-3)
+            else:
+                p.copy_(torch.randn(p.shape, generator=g, device=cuda))
+    eager.load_state(cap)
+    rng = np.random.RandomState(1)
+    cur = rng.randint(0, 512, S).astype(np.int32)
+    fin = np.zeros(S, bool)
+    pos = C - 60
+    out_c = out_e = (cur, fin)
+    for i in range(5):
+        start = rng.randint(0, pos - 100, S).astype(np.int32)
+        active = rng.rand(S) < 0.8
+        mc = int(rng.randint(1, 6))
+        n0, r0 = fd.launch_counts(), cap.replays
+        rc = cap(start, out_c[1], active, out_c[0], pos, mc)
+        assert fd.launch_counts() == n0 and cap.replays == r0 + 1
+        re = eager(start, out_e[1], active, out_e[0], pos, mc)
+        for a, b in zip(rc, re):
+            np.testing.assert_array_equal(a, b)
+        assert 1 <= rc[3] <= mc
+        for x, y in zip(cap.planes(), eager.planes()):
+            assert torch.equal(x, y)
+        out_c, out_e = rc[:2], re[:2]
+        pos += rc[3]
+    traced = _traced_decode_kernels(
+        lambda: [cap(start, out_c[1], active, out_c[0], pos, 5)
+                 for _ in range(3)])
+    assert sum(traced.values()) == (4 * 5 + 12) * 3, traced

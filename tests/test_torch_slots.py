@@ -3,8 +3,10 @@
 Randomized join/leave churn through the port's SlotLoop emits, token for
 token, what the JAX package's SlotLoop emits on the same weights and what
 the port's batch-1 ``generate()`` emits, with no step built after
-warm-up; plus the int8-KV variant, eos retirement, bounded-ring resets,
-the occupancy accounting, the constructor guards, the FLAGS surface, the
+warm-up; plus the int8-KV variant, the speculative loop (f32 and int8)
+against the JAX speculative SlotLoop and generate(), eos retirement,
+bounded-ring resets, the occupancy accounting, the constructor guards
+(a speculative loop builds), the FLAGS surface, the
 slot-mode Server against the JAX one, the off path, and the tensor
 ``cache_position`` of ``forward_cached`` against its int path, bit for
 bit.  The trace and the wave submission follow
@@ -22,6 +24,8 @@ from paddle_tpu.framework.flags import flags_snapshot as jflags_snapshot
 from paddle_tpu.framework.flags import set_flags as jset_flags
 from paddle_tpu.serving.slots import SlotLoop as JaxSlotLoop
 from paddle_tpu.text.generation import Generator as JaxGenerator
+from paddle_tpu.text.speculative import \
+    SpeculativeGenerator as JaxSpeculativeGenerator
 from torch_port_util import gpt_pair
 from paddle_tpu_torch import serving
 from paddle_tpu_torch.framework import flags as _flags
@@ -33,6 +37,7 @@ from paddle_tpu_torch.framework.flags import (flags_restore, flags_snapshot,
                                               set_flags)
 from paddle_tpu_torch.serving.slots import SlotLoop
 from paddle_tpu_torch.text.generation import Generator
+from paddle_tpu_torch.text.speculative import SpeculativeGenerator
 
 V = 64
 TINY = dict(vocab_size=V, hidden_size=32, layers=2, heads=2, seq=64)
@@ -68,6 +73,15 @@ def _run_churn(loop, reqs, waves=3):
         futs += [loop.submit(p, mn)
                  for p, mn in reqs[w * per:(w + 1) * per]]
         futs[w * per].result(timeout=120)
+    return [np.asarray(f.result(timeout=120)).reshape(-1) for f in futs]
+
+
+def _run_queued(loop, reqs):
+    """Queue the whole trace before the loop's thread admits any of it, so
+    both loops run one schedule (rows still join as others retire) and their
+    acceptance counters can be compared."""
+    with loop._cond:
+        futs = [loop.submit(p, mn) for p, mn in reqs]
     return [np.asarray(f.result(timeout=120)).reshape(-1) for f in futs]
 
 
@@ -124,6 +138,47 @@ def test_churn_int8_kv_matches_generate(pair):
             loop.close()
     finally:
         flags_restore(snap)
+
+
+def test_spec_churn_matches_jax_spec_loop_and_generate(pair):
+    """The speculative slot loop (a bad draft, gamma 2), f32 then int8
+    KV: the churn's tokens equal the JAX speculative SlotLoop's and the
+    port's batch-1 generate(), with JAX's acceptance counters, and no
+    step is built after warm-up.  (f32 and int8 in one test: the file
+    stays at 12 tests, ROADMAP queue C.)"""
+    jm, pm = pair
+    jd, pd = gpt_pair(101, vocab_size=V, hidden_size=16, layers=1, heads=2,
+                      seq=64)
+    snap, jsnap = flags_snapshot(), jflags_snapshot()
+    try:
+        for kv, seed in (("bf16", 600), ("int8", 601)):
+            set_flags({"FLAGS_kv_cache_dtype": kv})
+            jset_flags({"FLAGS_kv_cache_dtype": kv})
+            gen = SpeculativeGenerator(pm, pd, device="cpu", gamma=2,
+                                       **BUCKETS)
+            loop = SlotLoop(gen, slots=4, cache_len=64, chunk=8)
+            jloop = JaxSlotLoop(JaxSpeculativeGenerator(
+                jm, jd, gamma=2, **BUCKETS), slots=4, cache_len=64, chunk=8)
+            try:
+                assert loop._cache[0][0].k.dtype == (
+                    torch.int8 if kv == "int8" else torch.float32)
+                assert not loop._step.captured
+                reqs = _trace(random.Random(seed), 12)
+                outs, jouts = (_run_queued(lp, reqs) for lp in (loop, jloop))
+                for got, want in zip(outs, jouts):
+                    np.testing.assert_array_equal(got, want)
+                _assert_equal_generate(_gen(pm), reqs, outs)
+                st, jst = loop.stats(), jloop.stats()
+                for k in ("spec_accepted", "spec_proposed",
+                          "spec_acceptance_rate", "steps", "chunks"):
+                    assert st[k] == jst[k], k
+                assert gen.counters["steps_built"] == 1
+            finally:
+                loop.close()
+                jloop.close()
+    finally:
+        flags_restore(snap)
+        jflags_restore(jsnap)
 
 
 def test_eos_early_retirement_pads_with_eos(pair):
@@ -194,12 +249,17 @@ def test_slot_loop_constructor_guards(pair):
         SlotLoop(gen, slots=2, cache_len=64, chunk=8,
                  session_store=object())
 
-    class _Speculative(Generator):
-        _draft = object()
-
-    with pytest.raises(UnimplementedError, match="A3"):
-        SlotLoop(_Speculative(pm, device="cpu", **BUCKETS), slots=2,
-                 cache_len=64, chunk=8)
+    # a speculative generator builds its loop (the speculative step)
+    spec = SlotLoop(SpeculativeGenerator(pm, pm, device="cpu", gamma=2,
+                                         **BUCKETS), slots=2, cache_len=64,
+                    chunk=8)
+    try:
+        assert spec._spec and spec._gamma == 2
+        got = spec.submit([1, 2], 5).result(timeout=60)
+        np.testing.assert_array_equal(got, _generate(_gen(pm), [1, 2], 5))
+        assert spec.stats()["spec_acceptance_rate"] == 1.0   # self-draft
+    finally:
+        spec.close()
     loop = SlotLoop(gen, slots=2, cache_len=64, chunk=8)
     try:
         with pytest.raises(InvalidArgumentError):

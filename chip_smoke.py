@@ -153,6 +153,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # the operation rate of each input type
@@ -199,6 +200,8 @@ SHORT_REQUESTS = 8
 
 
 def log(phase, **kw):
+    """One line of a phase's results, with the seconds since start."""
+    kw["t_s"] = round(time.perf_counter() - _T0, 1)
     print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
 
 
@@ -297,7 +300,8 @@ def _windows(torch, kind, B, S, g):
                        dtype=torch.int32)
     if kind == "edge":
         lo[0], hi[0] = max(S - 40, 0), S   # every rank but the last empty
-        lo[1], hi[1] = 17, 18          # a single valid column
+        if B > 1:
+            lo[1], hi[1] = 17, 18      # a single valid column
     return lo, hi
 
 
@@ -356,6 +360,16 @@ def _row_rel_err(torch, got, want):
     return (err / scale).max().item()
 
 
+# (rows, cache length) of the one-query checks.  256 and 1024: four
+# cluster ranks of 64 and 256 columns; 32: one rank; 128, the beam's B*K
+# rows: two ranks; 200: four ranks of 50 columns; 512, speculative
+# generate() and the speculative server at batch 8 and 1: four ranks of
+# 128; 768, the slot loop's ring: four ranks of 192 columns, three chunks
+# that fill the 3-stage ring
+ONE_QUERY_SHAPES = ((8, 32), (8, 128), (8, 200), (8, 256), (8, 512),
+                    (1, 512), (8, 768), (8, 1024))
+
+
 def phase_kernels(torch, seed):
     import torch.nn.functional as F
     from paddle_tpu_torch.nn.layer.transformer import quantize_kv_rows
@@ -363,11 +377,8 @@ def phase_kernels(torch, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst = {"flash_decode": 0.0, "flash_decode_quant": 0.0}
     worst_row = {"flash_decode": 0.0, "flash_decode_quant": 0.0}
-    B, N = 8, 12
-    # 256 and 1024: four cluster ranks of 64 and 256 columns; 32: one
-    # rank; 200: four ranks of 50 columns; 768, the slot loop's ring: four
-    # ranks of 192 columns, three chunks that fill the 3-stage ring
-    for S in (32, 200, 256, 768, 1024):
+    N = 12
+    for B, S in ONE_QUERY_SHAPES:
         for H in (64, 128):
             for dt in (torch.float32, torch.bfloat16):
                 name = str(dt).split(".")[-1]
@@ -415,7 +426,7 @@ def phase_kernels(torch, seed):
                                   f"version {rel} of the row's max |out| "
                                   f"> {BF16_ROW_RTOL}")
                             worst_row[kern] = max(worst_row[kern], rel)
-                log("kernels", check=f"S={S} H={H} {name}",
+                log("kernels", check=f"B={B} S={S} H={H} {name}",
                     windows="full,ragged,edge,anywhere",
                     repeats_bit_for_bit=True,
                     ok=True)
@@ -427,6 +438,7 @@ def phase_kernels(torch, seed):
     # timing at the served shape, rotating over one cache per layer so
     # that, as in a decode step, the cache comes from HBM, not L2
     timings = {}
+    B = 8
     for S in (256, 1024):
         H = 64
         lo = torch.zeros(B, dtype=torch.int32, device="cuda")
@@ -484,7 +496,9 @@ def phase_kernels(torch, seed):
 # the verify block of speculative decoding: gamma + 1 = 5 queries a
 # (batch, head) row, query t seeing [start, pos + t + 1)
 BLOCK_T = (2, 5)
-BLOCK_S = (256, 768)
+# (rows, cache length): 512 is speculative generate()'s and the
+# speculative server's cache at batch 8 and 1, 768 the slot loop's ring
+BLOCK_SHAPES = ((8, 256), (8, 512), (1, 512), (8, 768))
 SPEC_GAMMA = 4
 
 
@@ -513,11 +527,11 @@ def _block_windows(torch, kind, B, T, S, g):
 def _block_checks(torch, g, worst, worst_row):
     """The block form of B3 (f32, bf16) and B4 (int8 K/V, bf16 q) against
     its plain version under the one-query limits, and bit-equal to T
-    one-query launches, at T in {2, 5} and S in {256, 768}."""
+    one-query launches, at T in {2, 5} and each of BLOCK_SHAPES."""
     from paddle_tpu_torch.nn.layer.transformer import quantize_kv_rows
     from paddle_tpu_torch.ops.kernels import flash_decode as fd
-    B, N, H = 8, 12, 64
-    for S in BLOCK_S:
+    N, H = 12, 64
+    for B, S in BLOCK_SHAPES:
         for T in BLOCK_T:
             for kind_dt in ("float32", "bfloat16", "int8"):
                 dt = torch.float32 if kind_dt == "float32" \
@@ -552,7 +566,7 @@ def _block_checks(torch, g, worst, worst_row):
                     singles = [one(q[:, :, t:t + 1].contiguous(), start,
                                    end[:, t].contiguous()) for t in range(T)]
                     torch.cuda.synchronize()
-                    where = f"{kern} T={T} S={S} {kind_dt} {kind}"
+                    where = f"{kern} B={B} T={T} S={S} {kind_dt} {kind}"
                     check(got.shape == q.shape and got.dtype == dt,
                           f"{where}: returned {got.shape} {got.dtype}")
                     check(all(torch.equal(got[:, :, t:t + 1], singles[t])
@@ -568,7 +582,7 @@ def _block_checks(torch, g, worst, worst_row):
                               f"{where}: {rel} of the row's max |out| "
                               f"against the bf16 plain version")
                         worst_row[kern] = max(worst_row.get(kern, 0.0), rel)
-            log("kernels", check=f"block T={T} S={S}",
+            log("kernels", check=f"block B={B} T={T} S={S}",
                 dtypes="float32,bfloat16,int8",
                 windows="full,ragged,ring_end",
                 equals_one_query_launches_bit_for_bit=True, ok=True)
@@ -844,6 +858,11 @@ def _plain_serving_gemms():
             setattr(m, n, f)
 
 
+# decode steps under torch.profiler (of the MAX_NEW timed untraced): the
+# trace's post-processing grows with its host and device records
+PROFILE_STEPS = 32
+
+
 def phase_profile(torch, model, seed):
     """Where a decode step's time goes: one 8-row bf16 batch, its decode
     loop timed alone, then again under torch.profiler for the device's
@@ -859,15 +878,16 @@ def phase_profile(torch, model, seed):
     C = gen.cache_bucket(P, MAX_NEW)
 
     def decode_ms(traced):
+        steps = PROFILE_STEPS if traced else MAX_NEW
         cache, logits0 = gen.prefill(ids, start, C)
         torch.cuda.synchronize()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if traced
               else contextlib.nullcontext()) as prof:
             t0 = time.perf_counter()
-            gen.decode(cache, logits0, start, P, MAX_NEW)
+            gen.decode(cache, logits0, start, P, steps)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) / MAX_NEW * 1e3
+            ms = (time.perf_counter() - t0) / steps * 1e3
         return ms, prof
 
     step_ms, _ = decode_ms(False)
@@ -886,7 +906,8 @@ def phase_profile(torch, model, seed):
     fd_launches = fd.flash_decode.launches - n0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    out = {"batch": BATCH_BUCKETS[-1], "steps": MAX_NEW, "cache": C,
+    out = {"batch": BATCH_BUCKETS[-1], "steps": MAX_NEW,
+           "traced_steps": PROFILE_STEPS, "cache": C,
            "step_ms": round(step_ms, 3),
            "step_ms_batch_invariant_gemms": [round(x, 3) for x in invariant],
            "step_ms_plain_gemms": [round(x, 3) for x in plain],
@@ -895,12 +916,13 @@ def phase_profile(torch, model, seed):
            "batch_invariant_cost_median": round(
                float(np.median(invariant) / np.median(plain)) - 1, 4),
            "step_ms_traced": round(traced_ms, 3)}
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / MAX_NEW
+    n = PROFILE_STEPS
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy <= 0:
         out["device_busy_ms_per_step"] = "not measured (no CUDA events)"
     else:
         fd_ms = sum(e.self_device_time_total for e in kernels
-                    if "decode_cluster_kernel" in e.key) / 1e3 / MAX_NEW
+                    if "decode_cluster_kernel" in e.key) / 1e3 / n
         check(fd_ms > 0 or fd_launches == 0,
               f"profile: {fd_launches} decode kernel launches, but no "
               "device time under decode_cluster_kernel")
@@ -909,13 +931,13 @@ def phase_profile(torch, model, seed):
             device_busy_ms_per_step=round(busy, 4),
             device_idle_share=round(1 - busy / step_ms, 4),
             kernel_launches_per_step=round(
-                sum(e.count for e in kernels) / MAX_NEW, 2),
-            flash_decode_launches_per_step=fd_launches / MAX_NEW,
+                sum(e.count for e in kernels) / n, 2),
+            flash_decode_launches_per_step=fd_launches / n,
             flash_decode_ms_per_step=round(fd_ms, 4),
             top_kernels=[{"name": e.key[:90],
-                          "calls_per_step": round(e.count / MAX_NEW, 2),
+                          "calls_per_step": round(e.count / n, 2),
                           "ms_per_step": round(e.self_device_time_total
-                                               / 1e3 / MAX_NEW, 4)}
+                                               / 1e3 / n, 4)}
                          for e in top])
     log("profile", **out)
 
@@ -1139,12 +1161,34 @@ def _plain_run(step):
     return lambda i: step(start, fin, active, pos + (i % 8))
 
 
+def _decode_grids(prof):
+    """Launches of B3/B4 (one template, decode_cluster_kernel) in a trace,
+    by the grid's x extent, rows x queries a row (B*N*tq): the trace's
+    Chrome export is the record that carries each kernel's grid."""
+    path = os.path.join(ROOT, "build", f"decode_trace_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    grids = {}
+    for e in events:
+        if e.get("cat") == "kernel" \
+                and "decode_cluster_kernel" in e.get("name", ""):
+            gx = e["args"]["grid"][0]
+            grids[gx] = grids.get(gx, 0) + 1
+    return grids
+
+
 def _step_profile(torch, run, calls=20, per_trace=None):
     """Host ms per ``run(i)`` call (no profiler), then device busy ms,
     kernels and decode-kernel launches per call under torch.profiler, in
-    traces of ``per_trace`` calls each (default: one trace).  A trace of
-    ~27,000 kernels (20 int8 speculative steps) lost records on an H100
-    where traces of under ~15,000 did not, so longer steps are traced in
+    traces of ``per_trace`` calls each (default: one trace), with the
+    decode launches by grid (``_decode_grids``).  A trace of ~27,000
+    kernels (20 int8 speculative steps) lost records on an H100 where
+    traces of under ~15,000 did not, so longer steps are traced in
     several windows and summed.  A trace with no device time fails: the
     launches read from it would be blind."""
     from torch.autograd import DeviceType
@@ -1156,13 +1200,15 @@ def _step_profile(torch, run, calls=20, per_trace=None):
         run(i)
     host_ms = (time.perf_counter() - t0) / calls * 1e3
     per_trace = per_trace or calls
-    count, dev_us = {}, {}
+    count, dev_us, grids = {}, {}, {}
     for w in range(0, calls, per_trace):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(w, min(calls, w + per_trace)):
                 run(i)
             torch.cuda.synchronize()
+        for gx, n in _decode_grids(prof).items():
+            grids[gx] = grids.get(gx, 0) + n
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 count[e.key] = count.get(e.key, 0) + e.count
@@ -1177,6 +1223,7 @@ def _step_profile(torch, run, calls=20, per_trace=None):
             "idle_share": round(max(0.0, 1 - busy / host_ms), 4),
             "kernels_per_step": round(sum(count.values()) / calls, 2),
             "decode_kernel_launches": sum(count[k] for k in fd_keys),
+            "decode_launches_by_grid_x": grids,
             "decode_kernel_ms": round(sum(dev_us[k] for k in fd_keys)
                                       / 1e3, 4),
             "traces": -(-calls // per_trace),
@@ -1232,9 +1279,13 @@ def phase_slots(torch, model, seed):
                       f"slots kv={kv}: steps built after warm-up: "
                       f"{built} -> {rt.gen.counters}")
                 # (iv) the graph the churn replayed, traced over 20
-                # replays: 12 decode kernels (B3, or B4 under int8) each
+                # replays: 12 one-query decode kernels (B3, or B4 under
+                # int8) each, grids of SLOTS x heads rows
                 prof = _step_profile(torch, _plain_run(step))
+                heads = model.config.num_heads
                 check(prof["decode_kernel_launches"] == layers * 20
+                      == prof["decode_launches_by_grid_x"].get(
+                          SLOTS * heads)
                       and prof["decode_kernel_ms"] > 0,
                       f"slots kv={kv}: traced replays {prof}")
             finally:
@@ -1246,6 +1297,8 @@ def phase_slots(torch, model, seed):
             eager_prof = _step_profile(torch, _plain_run(eager))
             out[kv] = {"steps": sl["steps"], "steps_replayed": sl["steps"],
                        "wrapper_launches": sum(counts.values()),
+                       "decode_kernels_per_replay": prof[
+                           "decode_kernel_launches"] / 20,
                        "decode_kernel_launches": prof[
                            "decode_kernel_launches"] // 20 * sl["steps"],
                        "chunks": sl["chunks"], "tok_per_s": run["tok_per_s"],
@@ -1580,11 +1633,21 @@ def _spec_slots(torch, model, draft, seed):
             check(dict(rt.gen.counters) == built,
                   f"spec slots kv={kv}: steps built after warm-up: "
                   f"{built} -> {rt.gen.counters}")
+            # 20 replays traced: the draft's one-query launches (grids of
+            # SLOTS x draft heads rows) and the target's verify blocks
+            # (SLOTS x heads x (gamma + 1) rows), told apart by grid
             prof = _step_profile(torch, _spec_run(step), per_trace=5)
+            grids = prof["decode_launches_by_grid_x"]
+            draft_n = grids.get(SLOTS * draft.config.num_heads, 0) / 20
+            verify_n = grids.get(SLOTS * model.config.num_heads
+                                 * (SPEC_GAMMA + 1), 0) / 20
             check(prof["decode_kernel_launches"] == per_replay * 20
+                  and draft_n == dlayers * (SPEC_GAMMA + 1)
+                  and verify_n == layers
                   and prof["decode_kernel_ms"] > 0,
                   f"spec slots kv={kv}: traced replays {prof}, want "
-                  f"{per_replay} decode kernels a replay")
+                  f"{dlayers * (SPEC_GAMMA + 1)} draft and {layers} verify "
+                  "decode kernels a replay")
         finally:
             srv.stop()
         equal, ties = _check_rows(torch, model, oracle, reqs, served,
@@ -1594,7 +1657,10 @@ def _spec_slots(torch, model, draft, seed):
         eager_prof = _step_profile(torch, _spec_run(eager), per_trace=5)
         out[kv] = {"steps": sl["steps"], "steps_replayed": sl["steps"],
                    "wrapper_launches": sum(counts.values()),
-                   "decode_kernels_per_replay": per_replay,
+                   "decode_kernels_per_replay": prof[
+                       "decode_kernel_launches"] / 20,
+                   "draft_decode_kernels_per_replay": draft_n,
+                   "verify_decode_kernels_per_replay": verify_n,
                    "chunks": sl["chunks"], "tok_per_s": run["tok_per_s"],
                    "ttft_p50_ms": sl["ttft_p50_ms"],
                    "ttft_p99_ms": sl["ttft_p99_ms"],
@@ -2993,7 +3059,7 @@ def main(argv=None):
     model = _gpt2(torch, args.seed, torch.bfloat16)
     served = phase_serving(torch, model, args.seed)
     phase_profile(torch, model, args.seed)
-    phase_slots(torch, model, args.seed)
+    slots = phase_slots(torch, model, args.seed)
     spec = phase_spec(torch, model, args.seed)
     beam = phase_beam(torch, model, args.seed)
     phase_batch_probe(torch, model, args.seed)
@@ -3045,9 +3111,10 @@ def main(argv=None):
              "spec_generate_draft_b8": gen_b8["bf16_b8"]["random_draft"][
                  "launches"]["flash_decode"],
              "beam": beam["launches"]["flash_decode"],
-             "slot_step_per_replay": 12,
+             "slot_step_per_replay": slots["bf16"][
+                 "decode_kernels_per_replay"],
              "spec_slot_step_draft_per_replay": spec["slots"]["bf16"][
-                 "decode_kernels_per_replay"] - 12},
+                 "draft_decode_kernels_per_replay"]},
          "max_abs_err": worst["flash_decode"],
          "ms": timing["flash_decode"],
          "plain_ms": timing["flash_decode_plain"],
@@ -3060,7 +3127,11 @@ def main(argv=None):
          "launches_by_path": {
              "serving": served["int8"]["launches"]["flash_decode_quant"],
              "spec_generate_draft_b8": gen_b8["int8_b8"]["random_draft"][
-                 "launches"]["flash_decode_quant"]},
+                 "launches"]["flash_decode_quant"],
+             "slot_step_per_replay": slots["int8"][
+                 "decode_kernels_per_replay"],
+             "spec_slot_step_draft_per_replay": spec["slots"]["int8"][
+                 "draft_decode_kernels_per_replay"]},
          "max_abs_err": worst["flash_decode_quant"],
          "ms": timing["flash_decode_quant"],
          "plain_ms": timing["flash_decode_quant_plain"],
@@ -3078,7 +3149,8 @@ def main(argv=None):
              "spec_server": spec["server"]["launches"]["flash_decode_block"],
              "spec_generate_b8": gen_b8["bf16_b8"]["random_draft"][
                  "launches"]["flash_decode_block"],
-             "spec_slot_step_per_replay": 12},
+             "spec_slot_step_per_replay": spec["slots"]["bf16"][
+                 "verify_decode_kernels_per_replay"]},
          "max_abs_err": worst["flash_decode_block"],
          "ms": timing["flash_decode_block"],
          "plain_ms": timing["flash_decode_block_plain"],
@@ -3089,6 +3161,11 @@ def main(argv=None):
          "replaces": "paddle_tpu/ops/pallas/flash_decode.py:159",
          "launches": gen_b8["int8_b8"]["random_draft"]["launches"][
              "flash_decode_quant_block"],
+         "launches_by_path": {
+             "spec_generate_b8": gen_b8["int8_b8"]["random_draft"][
+                 "launches"]["flash_decode_quant_block"],
+             "spec_slot_step_per_replay": spec["slots"]["int8"][
+                 "verify_decode_kernels_per_replay"]},
          "max_abs_err": worst["flash_decode_quant_block"],
          "ms": timing["flash_decode_quant_block"],
          "plain_ms": timing["flash_decode_quant_block_plain"],

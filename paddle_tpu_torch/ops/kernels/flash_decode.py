@@ -175,23 +175,22 @@ def _launch(name, fn, q, ptrs, B, N, S, H):
     return out
 
 
-def _block_ends(name, end, B, T, device):
-    """The block form's per-query window ends: int32 ``[B, T]``."""
-    if end is None:
+def _ends(name, start, end, q, B, S, block):
+    """The window [start, end): int32 ``[B]`` starts, and ``[B]`` ends or,
+    for the block form, per-query ends ``[B, T]``."""
+    if block and end is None:
         raise ValueError(f"{name}: the block form needs per-query ends "
                          "[B, T]")
-    hi = torch.as_tensor(end, dtype=torch.int32, device=device)
-    if tuple(hi.shape) != (B, T):
-        raise ValueError(f"{name}: end must be {(B, T)}, got "
+    lo, hi = _window(start, end, B, S, q.device)
+    if block and tuple(hi.shape) != (B, q.shape[2]):
+        raise ValueError(f"{name}: end must be {(B, q.shape[2])}, got "
                          f"{tuple(hi.shape)}")
-    return hi
+    return lo, hi
 
 
 def _decode(name, q, k, v, start, end, block):
     B, N, S, H = _shapes(name, q, k, v, block)
-    lo, hi = _window(start, None if block else end, B, S, q.device)
-    if block:
-        hi = _block_ends(name, end, B, q.shape[2], q.device)
+    lo, hi = _ends(name, start, end, q, B, S, block)
     _check_cuda(name, q,
                 [("q", q, tuple(_DTYPE_CODE)), ("k", k, (q.dtype,)),
                  ("v", v, (q.dtype,)), ("start", lo, (torch.int32,)),
@@ -209,9 +208,7 @@ def _decode_quant(name, q, k, v, k_scale, v_scale, start, end, block):
         raise ValueError(f"{name}: scales must be "
                          f"{(B, N, S, 1)}, got {tuple(k_scale.shape)} and "
                          f"{tuple(v_scale.shape)}")
-    lo, hi = _window(start, None if block else end, B, S, q.device)
-    if block:
-        hi = _block_ends(name, end, B, q.shape[2], q.device)
+    lo, hi = _ends(name, start, end, q, B, S, block)
     _check_cuda(name, q,
                 [("q", q, tuple(_DTYPE_CODE)), ("k", k, (torch.int8,)),
                  ("v", v, (torch.int8,)),

@@ -293,14 +293,15 @@ class _DecodeRuntime:
     def speculative(self):
         return getattr(self.gen, "_draft", None) is not None
 
-    def spec_stats(self):
+    def spec_stats(self, loop_stats=None):
         """Acceptance of the served traffic (since warm-up): the slot
-        loop's counters in slot mode, the generator's otherwise; None for
-        a plain runtime."""
+        loop's counters in slot mode (read from ``loop_stats``, the
+        loop's ``stats()`` where the caller has them), the generator's
+        otherwise; None for a plain runtime."""
         if not self.speculative:
             return None
         if self._loop is not None:
-            st = self._loop.stats()
+            st = loop_stats or self._loop.stats()
             acc, prop = st["spec_accepted"], st["spec_proposed"]
         else:
             tot, base = dict(self.gen.totals), self._spec_base or {}

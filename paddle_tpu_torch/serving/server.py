@@ -268,6 +268,7 @@ class Server:
             c = dict(rt.counters)
         lat = rt.latency.snapshot()
         ttft = rt.ttft.snapshot()
+        loop = rt._loop.stats() if rt._loop is not None else None
         rows = max(1, c["rows"])
         return {
             "model": model, "backend": rt.backend,
@@ -285,9 +286,8 @@ class Server:
                                    (rows + c["padded_rows"]), 4),
             "queue_depth": self._queue.depth() if self._queue else 0,
             "steady_compiles": c["steady_compiles"],
-            **({"slot_loop": rt._loop.stats()}
-               if rt._loop is not None else {}),
-            **(rt.spec_stats() or {}),
+            **({"slot_loop": loop} if loop is not None else {}),
+            **(rt.spec_stats(loop) or {}),
         }
 
     def signals(self) -> dict:

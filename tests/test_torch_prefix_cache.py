@@ -5,7 +5,9 @@ The trie's bookkeeping follows the JAX package's
 packages' caches side by side, and ends with the same stats.  Through
 the slot loop, a prefix hit gives the tokens of the same loop with the
 cache off (and of the JAX loop with its cache on), and counts its hit
-tokens; eviction pressure keeps the tokens too.
+tokens; eviction pressure keeps the tokens too.  A speculative loop
+publishes and restores the planes of both caches: a self-draft keeps
+accepting every proposal across prefix hits.
 """
 import numpy as np
 import pytest
@@ -13,10 +15,13 @@ import pytest
 from paddle_tpu.serving.prefix_cache import PrefixCache as JaxPrefixCache
 from paddle_tpu.serving.slots import SlotLoop as JaxSlotLoop
 from paddle_tpu.text.generation import Generator as JaxGenerator
+from paddle_tpu.text.speculative import \
+    SpeculativeGenerator as JaxSpeculativeGenerator
 from torch_port_util import gpt_pair
 from paddle_tpu_torch.serving.prefix_cache import PrefixCache
 from paddle_tpu_torch.serving.slots import SlotLoop
 from paddle_tpu_torch.text.generation import Generator
+from paddle_tpu_torch.text.speculative import SpeculativeGenerator
 
 V = 64
 TINY = dict(vocab_size=V, hidden_size=32, layers=2, heads=2, seq=128)
@@ -120,6 +125,47 @@ def test_prefix_hit_tokens_equal_cache_off_and_jax(pair):
         assert sig["prefix_cache_bytes"] == len(pc) * pc.block_nbytes
         # block bytes: every plane, one row x T columns
         assert pc.block_nbytes == 2 * 2 * (2 * T * 16 * 4)
+    finally:
+        for lp in (on, off, jon):
+            lp.close()
+
+
+def test_spec_prefix_hit_restores_both_caches(pair):
+    """A self-draft speculative loop (gamma 2) with the prefix cache on:
+    tokens equal the same loop with the cache off and the JAX
+    speculative loop with its cache on, the hits are counted, and the
+    draft accepts every proposal (a restore that missed the draft's
+    planes would make it propose from stale rows)."""
+    jm, pm = pair
+
+    def spec():
+        return SpeculativeGenerator(pm, pm, device="cpu", gamma=2,
+                                    seq_buckets=(16,), max_len=C)
+
+    prompts = _shared_prefix_prompts(7)
+    gen = spec()
+    # one block is both caches' planes, the draft's as wide as the target's
+    assert gen.block_nbytes(T) == 2 * Generator(
+        pm, device="cpu", seq_buckets=(16,), max_len=C).block_nbytes(T)
+    pc = PrefixCache(T, gen.block_nbytes(T))
+    on = SlotLoop(gen, S, C, T, prefix_cache=pc)
+    off = SlotLoop(spec(), S, C, T)
+    jon = JaxSlotLoop(JaxSpeculativeGenerator(jm, jm, gamma=2,
+                                              seq_buckets=(16,), max_len=C),
+                      S, C, T, prefix_cache=JaxPrefixCache(T, 1))
+    try:
+        got, want, jgot = (_serve(lp, prompts, max_new=6)
+                           for lp in (on, off, jon))
+        for a, b, c in zip(got, want, jgot):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+        assert on.counters["prefix_hit_tokens"] == 3 * 24 \
+            == jon.counters["prefix_hit_tokens"]
+        st = on.stats()
+        assert st["spec_proposed"] > 0
+        assert st["spec_acceptance_rate"] == 1.0
+        assert st["spec_accepted"] == off.stats()["spec_accepted"] \
+            == jon.stats()["spec_accepted"]
     finally:
         for lp in (on, off, jon):
             lp.close()

@@ -1,14 +1,17 @@
-"""Mixed precision: the dynamic loss scaler.
+"""Mixed precision: the dynamic loss scaler and ``decorate``.
 
-Counterpart of ``paddle_tpu/amp/__init__.py`` (``GradScaler``).  With
-bf16 compute, scaling is unnecessary (bf16 has f32's exponent range);
-the dynamic-scale state machine (grow every ``incr_every_n_steps`` good
-steps, back off after ``decr_every_n_nan_or_inf`` bad ones) is kept for
-fp16 use, and ``TrainStep`` drives it through :meth:`on_step_result`.
+Counterpart of ``paddle_tpu/amp/__init__.py`` (``GradScaler``,
+``decorate``).  With bf16 compute, scaling is unnecessary (bf16 has
+f32's exponent range); the dynamic-scale state machine (grow every
+``incr_every_n_steps`` good steps, back off after
+``decr_every_n_nan_or_inf`` bad ones) is kept for fp16 use, and
+``TrainStep`` drives it through :meth:`on_step_result`.
 """
 from __future__ import annotations
 
 import torch
+
+from ..framework.enforce import UnimplementedError
 
 
 class GradScaler:
@@ -98,3 +101,30 @@ class GradScaler:
 
 
 AmpScaler = GradScaler
+
+
+def decorate(models=None, optimizers=None, level="O1", dtype="bfloat16",
+             master_weight=None, save_dtype=None):
+    """paddle.amp.decorate parity for models.
+
+    ``level="O2"`` casts every floating parameter of ``models`` (one
+    module or a list) to bf16 (``dtype`` "bfloat16"/"bf16") or f16, in
+    place, LayerNorm's included, as the JAX package does; buffers keep
+    their dtype.  ``level="O1"`` returns the models unchanged.  The JAX
+    package's O2 optimizer keeps f32 master weights; the port's
+    ``Optimizer`` has none yet, so passing ``optimizers`` raises
+    (ROADMAP A5)."""
+    if optimizers is not None:
+        raise UnimplementedError(
+            "amp.decorate(optimizers=...): the port's optimizers keep no "
+            "f32 master weights of O2 parameters yet (ROADMAP A5)")
+    if level == "O2" and models is not None:
+        dt = torch.bfloat16 if dtype in ("bfloat16", "bf16") \
+            else torch.float16
+        targets = models if isinstance(models, (list, tuple)) else [models]
+        with torch.no_grad():
+            for m in targets:
+                for p in m.parameters():
+                    if p.is_floating_point():
+                        p.data = p.data.to(dt)
+    return models

@@ -3,7 +3,7 @@
 Counterpart of ``paddle_tpu/framework/flags.py``: the same
 ``set_flags``/``get_flags``/``flag`` surface, the same ``FLAGS_xxx``
 environment seeding and the same names, defaults and validators for the
-flags the decode-serving and training paths read.  Three defaults
+flags the serving and training paths read.  Three defaults
 differ on purpose:
 
 * ``use_flash_decode`` is ON here.  The JAX package ships it OFF because
@@ -114,8 +114,31 @@ define_flag("serving_batch_timeout_ms", 2.0,
             "arrivals before dispatching what it has.",
             validator=lambda v: float(v) >= 0)
 define_flag("serving_strict", True,
-            "A batch whose (batch, prompt, cache) bucket was not run at "
-            "warm-up fails instead of running cold.")
+            "A batch whose bucket was not warmed at start() fails instead "
+            "of running cold: a dense model's bucket without a captured "
+            "graph, a decode model's (batch, prompt, cache) bucket that "
+            "did not run.")
+define_flag("serving_pipeline_depth", 2,
+            "Batches a serving worker keeps in flight on the device "
+            "before fencing the oldest: the host staging and H2D of batch "
+            "N+1 overlap the replay of batch N (dense models).  1 "
+            "disables pipelining.",
+            validator=lambda v: int(v) >= 1)
+define_flag("serving_metrics_window", 2048,
+            "Sliding-window size (completed requests) of the per-model "
+            "serving latency window behind the p50/p99 of stats().",
+            validator=lambda v: int(v) >= 16)
+define_flag("graph_lint",
+            os.environ.get("PADDLE_TPU_GRAPH_LINT", "off").lower() or "off",
+            "Graph-lint tri-state of the JAX package ('off', 'warn', "
+            "'error').  The analysis passes are not ported (ROADMAP A13): "
+            "a dense model's warm-up raises unless this is 'off'.",
+            validator=lambda v: str(v).lower() in ("off", "warn", "error"))
+define_flag("use_int8_inference",
+            os.environ.get("PADDLE_TPU_INT8", "").lower()
+            in ("1", "true", "yes", "on"),
+            "Serve frozen int8 inference programs.  Not ported (ROADMAP "
+            "A10): a Predictor raises while this is on.")
 
 # ---- Autoregressive decoding --------------------------------------------------
 define_flag("use_flash_decode", True,

@@ -1,0 +1,254 @@
+"""paddle.inference of the port: the Predictor over a ``jit.save`` program.
+
+Counterpart of ``paddle_tpu/inference/__init__.py`` (``Config``,
+``PredictorTensor``, ``Predictor``, ``create_predictor``) on its
+``jit.save`` branch: the Predictor loads the program and its parameters
+once (``jit.load``), on the Config's device (CUDA unless
+``disable_gpu()``), and runs it at any batch size the program's
+symbolic dims allow.  ``clone()`` shares the loaded program and its
+weights and keeps its own feed and result buffers, one clone per serving
+thread.  ``run`` returns numpy arrays; ``run_async`` returns the device
+tensors without waiting for them (a bf16 output reaches numpy as
+float32, exactly: numpy has no bfloat16).
+
+Not ported, and raising :class:`UnimplementedError` with the ROADMAP
+item: the static-program branch (``load_inference_model`` + Executor,
+A13), frozen int8 programs (``.int8`` artifacts and
+``FLAGS_use_int8_inference``, A10) and the persistent compile cache
+(``set_optim_cache_dir``, A13).
+"""
+from __future__ import annotations
+
+import copy
+import glob
+import os
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..framework import flags as _flags
+from ..framework.enforce import (InvalidArgumentError, NotFoundError,
+                                 UnimplementedError)
+from ..framework.place import resolve_device
+
+__all__ = ["Config", "PredictorTensor", "Predictor", "create_predictor"]
+
+
+def _int8(what):
+    return UnimplementedError(
+        f"{what}: frozen int8 programs are not ported (ROADMAP A10, with "
+        "quantization/)")
+
+
+class Config:
+    """AnalysisConfig parity, the model-path part and the device."""
+
+    def __init__(self, prog_file=None, params_file=None):
+        if prog_file and os.path.isdir(prog_file):
+            self._model_dir, self._prog_file = prog_file, None
+        else:
+            self._model_dir, self._prog_file = None, prog_file
+        self._params_file = params_file
+        self._device = None             # None: CUDA
+
+    def set_model(self, prog_file, params_file=None):
+        device = self._device
+        self.__init__(prog_file, params_file)
+        self._device = device
+
+    def model_dir(self):
+        return self._model_dir
+
+    def prog_file(self):
+        return self._prog_file
+
+    def params_file(self):
+        return self._params_file
+
+    def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0):
+        self._device = f"cuda:{int(device_id)}"
+
+    def disable_gpu(self):
+        self._device = "cpu"
+
+    def device(self):
+        return self._device
+
+    def set_optim_cache_dir(self, path):
+        raise UnimplementedError(
+            "Config.set_optim_cache_dir: the persistent compile cache is "
+            "not ported (ROADMAP A13); a served program's CUDA graphs are "
+            "captured at Server.start()")
+
+
+def _numpy(t):
+    """A device tensor as numpy (bf16 widened to f32, exactly)."""
+    if torch.is_tensor(t):
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    return np.asarray(t)
+
+
+class PredictorTensor:
+    """ZeroCopyTensor parity: a named feed or fetch slot."""
+
+    def __init__(self, predictor, name, is_input):
+        self._p = predictor
+        self.name = name
+        self._is_input = is_input
+
+    def copy_from_cpu(self, arr):
+        if not self._is_input:
+            raise InvalidArgumentError(
+                f"copy_from_cpu on fetch {self.name!r}: only feed handles "
+                "accept input data (use copy_to_cpu to read outputs)")
+        arr = np.asarray(arr)
+        declared = self._p._declared_shapes.get(self.name)
+        if declared is not None and tuple(arr.shape) != declared:
+            raise InvalidArgumentError(
+                f"feed {self.name!r}: copy_from_cpu got shape "
+                f"{list(arr.shape)} but reshape() declared "
+                f"{list(declared)}")
+        self._p._feeds[self.name] = arr
+
+    def copy_to_cpu(self):
+        if self._is_input:
+            if self.name not in self._p._feeds:
+                raise NotFoundError(
+                    f"feed {self.name!r} has no value yet — "
+                    "copy_from_cpu() it first")
+            return _numpy(self._p._feeds[self.name])
+        if self.name not in self._p._results:
+            raise NotFoundError(
+                f"fetch {self.name!r} has no value yet — call run() "
+                "before copy_to_cpu()")
+        return _numpy(self._p._results[self.name])
+
+    def reshape(self, shape):
+        """ZeroCopyTensor::Reshape parity: declare the shape the next
+        copy_from_cpu must carry; a mismatching copy raises."""
+        if not self._is_input:
+            raise InvalidArgumentError(
+                f"reshape on fetch {self.name!r}: output shapes are "
+                "decided by the program")
+        dims = []
+        for d in shape:
+            d = int(d)
+            if d <= 0:
+                raise InvalidArgumentError(
+                    f"feed {self.name!r}: reshape dims must be concrete "
+                    f"positive ints, got {list(shape)} (dynamic batch is "
+                    "declared at export via InputSpec([None, ...]))")
+            dims.append(d)
+        self._p._declared_shapes[self.name] = tuple(dims)
+
+    def shape(self):
+        if self._is_input:
+            declared = self._p._declared_shapes.get(self.name)
+            if declared is not None:
+                return list(declared)
+            if self.name not in self._p._feeds:
+                raise NotFoundError(
+                    f"feed {self.name!r} has no shape yet — reshape() or "
+                    "copy_from_cpu() it first")
+            return list(self._p._feeds[self.name].shape)
+        if self.name not in self._p._results:
+            raise NotFoundError(
+                f"fetch {self.name!r} has no shape yet — call run() "
+                "before shape()")
+        return list(self._p._results[self.name].shape)
+
+
+class Predictor:
+    """AnalysisPredictor parity over a ``jit.save`` program."""
+
+    def __init__(self, config: Config):
+        from .. import jit as _jit
+        d = config.model_dir() or config.prog_file()
+        if d is None:
+            raise ValueError("Config needs a model dir or a jit.save "
+                             "prefix")
+        if _flags.flag("use_int8_inference"):
+            raise _int8("FLAGS_use_int8_inference")
+        prefix = self._jit_prefix(d)
+        if prefix is None:
+            raise UnimplementedError(
+                f"{d!r} holds no jit.save program: the static-program "
+                "Predictor (load_inference_model + Executor) is not "
+                "ported (ROADMAP A13); export with paddle_tpu_torch.jit."
+                "save or serving.export_for_serving")
+        if prefix.endswith(".int8"):
+            raise _int8(prefix)
+        self.device = resolve_device(config.device())
+        self._translated = _jit.load(prefix, device=self.device)
+        self._feed_names = [f"x{i}" for i in range(
+            self._translated.num_inputs)]
+        self._fetch_names = [f"out{i}" for i in range(
+            self._translated.num_outputs)]
+        self._feeds: Dict[str, object] = {}
+        self._results: Dict[str, object] = {}
+        self._declared_shapes: Dict[str, tuple] = {}
+
+    def clone(self):
+        """AnalysisPredictor::Clone parity: a predictor sharing this one's
+        loaded program and weights (the same TranslatedLayer), with its
+        own feed and result buffers."""
+        c = copy.copy(self)
+        c._feeds, c._results, c._declared_shapes = {}, {}, {}
+        return c
+
+    @staticmethod
+    def _jit_prefix(d):
+        if d.endswith(".pdmodel"):
+            return d[:-len(".pdmodel")]
+        if os.path.isfile(d + ".pdmodel"):
+            return d
+        if os.path.isfile(d + ".int8.pdmodel"):
+            return d + ".int8"
+        if os.path.isdir(d) and not os.path.exists(
+                os.path.join(d, "__model__")):
+            pdm = sorted(p for p in glob.glob(os.path.join(d, "*.pdmodel"))
+                         if not p.endswith(".int8.pdmodel"))
+            if pdm:
+                return pdm[0][:-len(".pdmodel")]
+            pdm = sorted(glob.glob(os.path.join(d, "*.int8.pdmodel")))
+            if pdm:
+                return pdm[0][:-len(".pdmodel")]
+        return None
+
+    def get_input_names(self) -> List[str]:
+        return list(self._feed_names)
+
+    def get_output_names(self) -> List[str]:
+        return list(self._fetch_names)
+
+    def get_input_handle(self, name):
+        return PredictorTensor(self, name, True)
+
+    def get_output_handle(self, name):
+        return PredictorTensor(self, name, False)
+
+    def run_async(self, inputs=None):
+        """Run the program on the feeds (or ``inputs``, positional) and
+        return its outputs as device tensors, without waiting for the
+        device; results land in the buffers ``copy_to_cpu`` reads."""
+        if inputs is not None:
+            for name, arr in zip(self._feed_names, inputs):
+                self._feeds[name] = arr
+        out = self._translated(*[self._feeds[n] for n in self._feed_names])
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        self._results = dict(zip(self._fetch_names, outs))
+        return [self._results[n] for n in self._fetch_names]
+
+    def run(self, inputs=None):
+        """ZeroCopyRun parity; also takes positional arrays like the 2.x
+        predictor.run(list).  Returns numpy arrays."""
+        outs = [_numpy(o) for o in self.run_async(inputs)]
+        self._results = dict(zip(self._fetch_names, outs))
+        return outs
+
+
+def create_predictor(config: Config) -> Predictor:
+    return Predictor(config)

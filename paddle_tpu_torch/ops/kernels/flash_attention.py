@@ -13,18 +13,28 @@ An optional additive ``bias`` broadcasts as (Bb in {1, B}, Nb in {1, N},
 1 or Sq, Sk); causal masking is bottom-right aligned (query row i sees
 keys <= i + Sk - Sq) with the finite -1e30.  The bias gets no gradient.
 
-:func:`flash_attention` is a ``torch.autograd.Function``: its forward
-calls :func:`flash_fwd` (kernel B1, ``csrc/flash_attention.cu``) and its
-backward :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` (B2).  On CUDA
-tensors each launches its kernel and counts the launch in
+Each kernel is a registered operator (``torch.library.custom_op``):
+``paddle_tpu_torch::flash_attention_fwd`` (kernel B1,
+``csrc/flash_attention.cu``; returns o and lse),
+``paddle_tpu_torch::flash_attention_dq`` and
+``paddle_tpu_torch::flash_attention_dkv`` (B2).  The CUDA implementation
+of each launches its kernel and counts the launch in
 ``flash_attention.launches_fwd``, ``launches_dq`` or ``launches_dkv``;
-on CPU tensors each computes its plain version, which is also what the
-kernels are held against.  The dtype picks the kernel: bf16 runs the
-tensor-core kernels (``mma.sync``, p and ds rounded to bf16 where they
-become operands, exactly as the plain versions round them), f32 the FMA
-kernels.  On CUDA nothing falls back: a head_dim the kernels are not
-built for (64, 128, 256) or a dtype other than f32/bf16 raises, and a
-view whose start or strides are not 16-byte aligned is copied first.
+the CPU implementation is the plain version, which is also what the
+kernels are held against.  A fake implementation gives each output's
+shape, dtype and strides, so ``torch.export`` (``jit.save``) traces an
+attention call to one operator node, which a loaded program calls again
+(the ``ctypes`` launch itself cannot run on fake tensors).
+:func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` call the
+operators; :func:`flash_attention` calls the forward one, whose gradient
+(``register_autograd``) calls the two backward ones.
+
+The dtype picks the kernel: bf16 runs the tensor-core kernels
+(``mma.sync``, p and ds rounded to bf16 where they become operands,
+exactly as the plain versions round them), f32 the FMA kernels.  On
+CUDA nothing falls back: a head_dim the kernels are not built for (64,
+128, 256) or a dtype other than f32/bf16 raises, and a view whose start
+or strides are not 16-byte aligned is copied first.
 The kernels take any Sq and Sk; :func:`supports` keeps the TPU kernel's
 gate (S a multiple of 128) for comparison with the JAX package only.
 """
@@ -33,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import Optional, Tuple
 
 import torch
 
@@ -246,13 +257,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd(q, k, v, bias=None, causal=False, scale=None):
-    """Kernel B1: returns (o (B, N, Sq, H), on CUDA stored as (B, Sq, N,
-    H), lse f32 (B, N, Sq)); on CPU tensors the plain version."""
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        _shapes(q, k, v, causal)
-        return flash_fwd_reference(q, k, v, bias, causal, scale)
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def _launch_fwd(q, k, v, bias, causal, scale):
+    """Launch B1 on CUDA tensors: (o (B, N, Sq, H) stored as (B, Sq, N, H),
+    lse f32 (B, N, Sq))."""
     (B, N, Sq, Sk, H), q, k, v, b4 = _prepare(q, k, v, bias, causal)
     o = _bhsd_empty(B, N, Sq, H, q)
     lse = torch.empty((B, N, Sq), dtype=torch.float32, device=q.device)
@@ -291,12 +302,48 @@ def _bwd_launch(fn, name, q, k, v, bias, lse, do, dd, causal, scale, outs):
     return [grads[o] for o in outs]
 
 
-def flash_bwd_dq(q, k, v, bias, lse, do, dd, causal=False, scale=None):
-    """Kernel B2, dQ: one block per query tile sweeping the key tiles; on
-    CPU tensors the plain version."""
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, bias, lse, do, dd, causal, scale, "q")[0]
+# -- the registered operators -------------------------------------------------
+#
+# One operator per kernel.  CUDA: the launch (or an error: nothing falls
+# back).  CPU: the plain version, made contiguous so that its strides are
+# the fake implementation's.  Fake: shapes, dtypes and the strides each
+# device's implementation returns (CUDA stores o, dQ, dK and dV as
+# (B, S, N, H)).
+
+def _like_out(q, B, N, S, H):
+    if q.device.type == "cuda":
+        return _bhsd_empty(B, N, S, H, q)
+    return q.new_empty((B, N, S, H))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor], causal: bool,
+            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_fwd(q, k, v, bias, causal, scale)
+
+
+@_fwd_op.register_kernel("cpu")
+def _fwd_cpu(q, k, v, bias, causal, scale):
+    _shapes(q, k, v, causal)
+    o, lse = flash_fwd_reference(q, k, v, bias, causal, scale)
+    return o.contiguous(), lse.contiguous()
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, bias, causal, scale):
+    B, N, Sq, _, H = _shapes(q, k, v, causal)
+    return (_like_out(q, B, N, Sq, H),
+            q.new_empty((B, N, Sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_dq",
+                         mutates_args=(), device_types="cuda")
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           bias: Optional[torch.Tensor], lse: torch.Tensor,
+           do: torch.Tensor, dd: torch.Tensor, causal: bool,
+           scale: float) -> torch.Tensor:
     lib = _build.library("flash_attention")
     dq, = _bwd_launch(lib.flash_attn_dq_launch, "flash_attention dQ", q, k,
                       v, bias, lse, do, dd, causal, scale, ("dq",))
@@ -305,12 +352,24 @@ def flash_bwd_dq(q, k, v, bias, lse, do, dd, causal=False, scale=None):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, bias, lse, do, dd, causal=False, scale=None):
-    """Kernel B2, dK and dV: one block per key tile sweeping the query
-    tiles; on CPU tensors the plain version."""
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, bias, lse, do, dd, causal, scale, "kv")
+@_dq_op.register_kernel("cpu")
+def _dq_cpu(q, k, v, bias, lse, do, dd, causal, scale):
+    return _bwd_plain(q, k, v, bias, lse, do, dd, causal, scale,
+                      "q")[0].contiguous()
+
+
+@_dq_op.register_fake
+def _dq_fake(q, k, v, bias, lse, do, dd, causal, scale):
+    B, N, Sq, _, H = _shapes(q, k, v, causal)
+    return _like_out(q, B, N, Sq, H)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_dkv",
+                         mutates_args=(), device_types="cuda")
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor], lse: torch.Tensor,
+            do: torch.Tensor, dd: torch.Tensor, causal: bool,
+            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     lib = _build.library("flash_attention")
     dk, dv = _bwd_launch(lib.flash_attn_dkv_launch, "flash_attention dK/dV",
                          q, k, v, bias, lse, do, dd, causal, scale,
@@ -320,23 +379,57 @@ def flash_bwd_dkv(q, k, v, bias, lse, do, dd, causal=False, scale=None):
     return dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale):
-        o, lse = flash_fwd(q, k, v, bias, causal, scale)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+@_dkv_op.register_kernel("cpu")
+def _dkv_cpu(q, k, v, bias, lse, do, dd, causal, scale):
+    dk, dv = _bwd_plain(q, k, v, bias, lse, do, dd, causal, scale, "kv")
+    return dk.contiguous(), dv.contiguous()
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        args = (q, k, v, bias, lse, do, flash_dd(o, do), ctx.causal,
-                ctx.scale)
-        dq = flash_bwd_dq(*args)
-        dk, dv = flash_bwd_dkv(*args)
-        # the bias is not differentiable here (JAX returns zeros for it)
-        return dq, dk, dv, None, None, None
+
+@_dkv_op.register_fake
+def _dkv_fake(q, k, v, bias, lse, do, dd, causal, scale):
+    B, N, _, Sk, H = _shapes(q, k, v, causal)
+    return _like_out(k, B, N, Sk, H), _like_out(k, B, N, Sk, H)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, bias, causal, scale = inputs
+    o, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, bias, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _fwd_backward(ctx, do, _dlse):
+    q, k, v, bias, o, lse = ctx.saved_tensors
+    args = (q, k, v, bias, lse, do, flash_dd(o, do), ctx.causal, ctx.scale)
+    dq = _dq_op(*args)
+    dk, dv = _dkv_op(*args)
+    # the bias is not differentiable here (JAX returns zeros for it)
+    return dq, dk, dv, None, None, None
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+# -- entry points -------------------------------------------------------------
+
+def flash_fwd(q, k, v, bias=None, causal=False, scale=None):
+    """Kernel B1: returns (o (B, N, Sq, H), on CUDA stored as (B, Sq, N,
+    H), lse f32 (B, N, Sq)); on CPU tensors the plain version."""
+    return _fwd_op(q, k, v, bias, bool(causal), _scale(q, scale))
+
+
+def flash_bwd_dq(q, k, v, bias, lse, do, dd, causal=False, scale=None):
+    """Kernel B2, dQ: one block per query tile sweeping the key tiles; on
+    CPU tensors the plain version."""
+    return _dq_op(q, k, v, bias, lse, do, dd, bool(causal), _scale(q, scale))
+
+
+def flash_bwd_dkv(q, k, v, bias, lse, do, dd, causal=False, scale=None):
+    """Kernel B2, dK and dV: one block per key tile sweeping the query
+    tiles; on CPU tensors the plain version."""
+    return tuple(_dkv_op(q, k, v, bias, lse, do, dd, bool(causal),
+                         _scale(q, scale)))
 
 
 def flash_attention(q, k, v, bias=None, causal=False, scale=None):
@@ -344,8 +437,7 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None):
     on CUDA), with an optional additive ``bias`` (f32 or q's dtype) and
     bottom-right ``causal`` masking; ``scale`` defaults to 1/sqrt(H).
     Differentiable in q, k and v.  Returns (B, N, Sq, H) in q's dtype."""
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
-    return _FlashAttention.apply(q, k, v, bias, bool(causal), scale)
+    return flash_fwd(q, k, v, bias, causal, scale)[0]
 
 
 flash_attention.launches_fwd = 0

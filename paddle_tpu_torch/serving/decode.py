@@ -84,11 +84,13 @@ class _DecodeRuntime:
     plan, metrics and the strict steady-state discipline."""
 
     backend = "decode"
+    kind = "decode"
 
     def __init__(self, spec: DecodeModelSpec, device):
         self.spec = spec
         self.name = spec.name
         self.device = device
+        self.events: List[dict] = []        # cold batches after warm-up
         self.ladder = BucketLadder.from_flag(
             spec.batch_buckets if spec.batch_buckets is not None
             else _flags.flag("serving_buckets"))
@@ -259,6 +261,10 @@ class _DecodeRuntime:
                     "(FLAGS_serving_strict=True refuses steady-state "
                     "cold shapes — extend the ladders and re-warm)")
             self.bump(steady_compiles=1)
+            self.events.append({"site": f"serving:{self.name}",
+                                "kind": "serving_cold_batch", "bucket": B,
+                                "prompt": P, "cache": C,
+                                "model": self.name, "graph": False})
             self._warmed.add((B, P, C))
         ids, start = self.gen.pack_prompts(prompts, P)
         cache, logits0 = self.gen.prefill(ids, start, C)

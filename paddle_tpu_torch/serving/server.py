@@ -1,55 +1,448 @@
-"""In-process serving engine for autoregressive decode models.
+"""In-process serving engine: dense models and autoregressive decode.
 
-Counterpart of the decode half of ``paddle_tpu/serving/server.py``
-(``ServingConfig`` and ``Server`` with ``register_decode``, ``start``,
-``submit_decode``, ``run_decode``, ``stop``, ``stats`` and
-``signals``).  Requests stream into a bounded queue; a scheduler
-thread packs them FIFO into batch buckets; worker threads run each
-batch's prefill and decode loop on the server's device and resolve the
-requests' futures with their own rows.  ``start`` warms every (batch bucket x prefill bucket) pair before
-a single request is admitted.  Under ``FLAGS_decode_slots > 0`` the
-workers hand each row to the model's slot loop (serving/slots.py)
-instead, which admits and retires rows at token boundaries.
+Counterpart of ``paddle_tpu/serving/server.py`` (``ModelSpec``,
+``export_for_serving``, ``ServingConfig`` and ``Server`` with
+``register``, ``register_decode``, ``start``, ``submit``, ``run``,
+``submit_decode``, ``run_decode``, ``stop``, ``stats``, ``signals`` and
+the steady-state compile check).  Requests stream into a bounded queue;
+a scheduler thread packs them FIFO into batch buckets; worker threads
+run each batch on the server's device and resolve the requests' futures
+with their own rows.
+
+Dense models (``register``/``submit``) are ``jit.save`` programs, loaded
+through ``inference.Predictor``.  The JAX package compiles one
+executable per (model, bucket) ahead of time; the port captures one CUDA
+graph per (model, bucket) at ``start()`` (:class:`_BucketGraph`), and a
+batch is copied into the graph's input buffers, replayed, and its
+outputs copied out before the graph runs again.  A worker keeps up to
+``FLAGS_serving_pipeline_depth`` batches in flight and fences the
+oldest.  After warm-up no graph is captured: a bucket without one fails
+under ``FLAGS_serving_strict``, or is captured and recorded as a
+steady-state capture (``compile_events_since_warmup``).  On the CPU
+nothing is captured: warm-up runs each bucket once and a batch runs the
+program eagerly through the worker's ``Predictor.clone()``.
+
+Decode models (``register_decode``/``submit_decode``): ``start`` warms
+every (batch bucket x prefill bucket) pair before a single request is
+admitted.  Under ``FLAGS_decode_slots > 0`` the workers hand each row to
+the model's slot loop (serving/slots.py) instead, which admits and
+retires rows at token boundaries.
+
+Not ported: the graph-lint admission gate (``FLAGS_graph_lint`` must be
+"off"), int8 exports, tracing spans, tenants and the cluster hooks.
 """
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
+
 from ..framework import flags as _flags
 from ..framework.enforce import (InvalidArgumentError, NotFoundError,
-                                 PreconditionNotMetError, UnavailableError)
-from ..framework.place import DeviceLike, resolve_device
+                                 PreconditionNotMetError, UnavailableError,
+                                 UnimplementedError)
+from ..framework.place import DeviceLike, module_device, resolve_device
+from ..profiler.metrics import LatencyWindow, RateMeter
+from .bucketing import BucketLadder, pad_to_bucket
 from .decode import DecodeModelSpec, DecodeRequest, _DecodeRuntime
-from .scheduler import Batch, RequestQueue
+from .scheduler import Batch, Request, RequestQueue
 
-__all__ = ["ServingConfig", "Server"]
+__all__ = ["ModelSpec", "export_for_serving", "ServingConfig", "Server"]
 
+
+# ---------------------------------------------------------------------------
+# Deploy artifact contract
+# ---------------------------------------------------------------------------
 
 @dataclass
-class ServingConfig:
-    """Server-wide knobs; None fields fall back to FLAGS_serving_*."""
+class ModelSpec:
+    """One served dense model: a ``jit.save`` prefix (``m`` for
+    ``m.pdmodel``; with a ``<prefix>.serving.json`` manifest from
+    :func:`export_for_serving`) and its bucket ladder (default
+    FLAGS_serving_buckets)."""
 
-    workers: Optional[int] = None
-    queue_capacity: Optional[int] = None
-    batch_timeout_ms: Optional[float] = None
+    name: str
+    path: str
     buckets: Optional[Sequence[int]] = None
 
 
-class _Worker(threading.Thread):
-    """One serving thread: runs whole batches (prefill + decode loop)
-    synchronously and slices the generated rows back per request."""
+def _manifest_path(prefix: str) -> str:
+    return prefix + ".serving.json"
 
-    def __init__(self, server: "Server", idx: int):
+
+def _dtype_name(dtype) -> str:
+    from ..jit import to_torch_dtype
+    return str(to_torch_dtype(dtype)).split(".")[-1]
+
+
+def export_for_serving(layer, prefix: str, input_spec, buckets=None,
+                       int8: bool = False) -> dict:
+    """Export ``layer`` for the serving engine and write the
+    ``<prefix>.serving.json`` manifest the registry discovers.
+
+    Tries one export with a symbolic batch dim first ("poly": one program
+    serves every bucket), and runs the loaded program at every bucket of
+    the ladder: ``torch.export`` may have specialized the batch dim, and
+    bucket 1 is where that shows.  If either fails it writes one export
+    per bucket, ``<prefix>.b<k>`` ("per_bucket").  The program is
+    exported on ``layer``'s device and serves there.  Int8 exports are
+    not ported (ROADMAP A10)."""
+    from .. import jit as _jit
+    from ..static import InputSpec
+    if int8:
+        raise UnimplementedError(
+            "export_for_serving(int8=True): frozen int8 programs are not "
+            "ported (ROADMAP A10)")
+    ladder = BucketLadder.from_flag(buckets)
+    device = module_device(layer) or torch.device("cpu")
+
+    def norm(spec):
+        if isinstance(spec, InputSpec):
+            return list(spec.shape), spec.dtype
+        shape, dtype = spec
+        return list(shape), dtype
+
+    rests = [(list(shape[1:]), dtype)
+             for shape, dtype in map(norm, input_spec)]
+
+    def save(pfx, lead):
+        _jit.save(layer, pfx, input_spec=[
+            InputSpec([lead] + rest, dtype=dtype) for rest, dtype in rests])
+
+    def verify(pfx):
+        tl = _jit.load(pfx, device=device)
+        for b in ladder:
+            outs = tl(*[torch.zeros([b] + rest,
+                                    dtype=_jit.to_torch_dtype(dtype),
+                                    device=device) for rest, dtype in rests])
+            for o in outs if isinstance(outs, list) else [outs]:
+                if o.shape[0] != b:
+                    raise PreconditionNotMetError(
+                        f"poly export returned batch {o.shape[0]} at "
+                        f"bucket {b}")
+
+    mode = "poly"
+    try:
+        save(prefix, None)
+        verify(prefix)
+    except Exception:   # noqa: BLE001 — any failure: one export per bucket
+        mode = "per_bucket"
+        for b in ladder:
+            save(f"{prefix}.b{b}", b)
+    manifest = {"mode": mode, "buckets": ladder.buckets, "int8": False,
+                "input_specs": [[[None] + rest, _dtype_name(dtype)]
+                                for rest, dtype in rests]}
+    with open(_manifest_path(prefix), "w") as f:
+        json.dump(manifest, f)
+    return manifest
+
+
+# ---------------------------------------------------------------------------
+# One served dense model
+# ---------------------------------------------------------------------------
+
+_NUMPY = {torch.float32: np.float32, torch.float64: np.float64,
+          torch.float16: np.float16, torch.int64: np.int64,
+          torch.int32: np.int32, torch.int16: np.int16, torch.int8: np.int8,
+          torch.uint8: np.uint8, torch.bool: np.bool_}
+
+
+class _Done:
+    """A batch already computed (the CPU's eager run)."""
+
+    def __init__(self, outs):
+        self._outs = outs
+
+    def fence(self):
+        return self._outs
+
+
+class _InFlight:
+    """A replayed batch: its outputs' pinned host copies and the event
+    recorded after them."""
+
+    def __init__(self, outs, done):
+        self._outs, self._done = outs, done
+
+    def fence(self):
+        self._done.synchronize()
+        return [o.numpy() for o in self._outs]
+
+
+class _EagerBucket:
+    """One bucket on the CPU: nothing is captured; a batch runs the
+    program eagerly through the worker's clone of the bucket's
+    predictor."""
+
+    captured = False
+
+    def __init__(self, predictor, templates, bucket):
+        self.predictor = predictor
+        predictor.clone().run([np.zeros((bucket,) + rest, dt)
+                               for rest, dt in templates])
+
+    def dispatch(self, padded, clone):
+        return _Done(clone.run(padded))
+
+
+class _BucketGraph:
+    """One (model, bucket) as a captured CUDA graph.
+
+    The graph owns its input buffers (zeros of the bucket's shapes) and
+    its outputs (bf16 ones widened to f32 inside the graph, exactly, for
+    numpy).  Capture follows warm-up runs on a side stream; a failed
+    capture raises.  The graph reads the weights of the predictor's
+    loaded program, shared by every graph and clone of the model.
+
+    Every worker replays on the model's serving stream under the graph's
+    lock: a batch's input copies, the replay and the copies of its
+    outputs into fresh pinned host buffers are enqueued together, and
+    stream order keeps the next batch's input copies behind them.  The
+    returned :class:`_InFlight` is fenced by its event.  ``replays``
+    counts the replays."""
+
+    captured = True
+
+    def __init__(self, predictor, templates, bucket, stream):
+        dev = predictor.device
+        self.predictor = predictor
+        self.stream = stream
+        self.lock = threading.Lock()
+        with torch.no_grad():
+            self.inputs = [torch.zeros((bucket,) + rest, dtype=dt,
+                                       device=dev)
+                           for rest, dt in templates]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                predictor.run_async(self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # kept beside its executable, so that its kernel nodes can be read
+        # back (profiler.cuda_graph); thread-local, so that a worker
+        # replaying another bucket meanwhile does not invalidate a
+        # steady-state capture
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            outs = predictor.run_async(self.inputs)
+            self.outputs = [o.float() if o.dtype == torch.bfloat16 else o
+                            for o in outs]
+        self.graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.replays = 0
+
+    def dispatch(self, padded, clone=None):
+        staged = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                  for a in padded]
+        with self.lock, torch.cuda.stream(self.stream):
+            for dst, src in zip(self.inputs, staged):
+                dst.copy_(src, non_blocking=True)
+            self.graph.replay()
+            self.replays += 1
+            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    .copy_(o, non_blocking=True) for o in self.outputs]
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return _InFlight(host, done)
+
+
+class _ModelRuntime:
+    """A loaded dense model: its predictors, bucket ladder, one
+    executable per bucket (a :class:`_BucketGraph` on CUDA, an
+    :class:`_EagerBucket` on the CPU), the warm-up and steady-state
+    capture events, and serving metrics."""
+
+    kind = "dense"
+
+    def __init__(self, spec: ModelSpec, device):
+        self.spec = spec
+        self.name = spec.name
+        self.device = device
+        self.site = f"serving:{spec.name}"
+        self.ladder = BucketLadder.from_flag(spec.buckets)
+        self.backend = None            # "jit" | "jit_per_bucket"
+        self.primary = None
+        self.predictors: Dict[int, object] = {}      # bucket -> Predictor
+        self.executables: Dict[int, object] = {}     # bucket -> executable
+        self.templates: List[tuple] = []             # (rest, torch dtype)
+        self.np_dtypes: List[np.dtype] = []
+        self.n_inputs = 0
+        self.stream = None
+        self.events: List[dict] = []   # captures (warm-up and steady)
+        self.admitted = False
+        self.latency = LatencyWindow(
+            int(_flags.flag("serving_metrics_window")))
+        self.rate = RateMeter()
+        self._build_lock = threading.Lock()
+        self._mlock = threading.Lock()
+        self.counters = {"requests": 0, "completed": 0,  # guarded-by: _mlock
+                         "errors": 0, "batches": 0, "rows": 0,
+                         "padded_rows": 0, "steady_compiles": 0}
+
+    def bump(self, **kw):
+        with self._mlock:
+            for k, v in kw.items():
+                self.counters[k] += v
+
+    # -- loading -------------------------------------------------------------
+    def _predictor(self, path):
+        from ..inference import Config, Predictor
+        cfg = Config(path)
+        if self.device.type == "cpu":
+            cfg.disable_gpu()
+        else:
+            cfg.enable_use_gpu(device_id=self.device.index or 0)
+        return Predictor(cfg)
+
+    def load(self):
+        from ..jit import to_torch_dtype
+        manifest = None
+        mpath = _manifest_path(self.spec.path)
+        if os.path.isfile(mpath):
+            with open(mpath) as f:
+                manifest = json.load(f)
+        if manifest is not None and manifest.get("mode") == "per_bucket":
+            self.backend = "jit_per_bucket"
+            buckets = [b for b in manifest["buckets"] if b in self.ladder]
+            if not buckets:
+                raise PreconditionNotMetError(
+                    f"serving model {self.name!r}: per-bucket export "
+                    f"{manifest['buckets']} shares no bucket with the "
+                    f"requested ladder {self.ladder.buckets}")
+            self.ladder = BucketLadder(buckets)
+            for b in self.ladder:
+                self.predictors[b] = self._predictor(f"{self.spec.path}.b{b}")
+            self.primary = self.predictors[self.ladder.buckets[0]]
+            specs = [(shape, to_torch_dtype(dt))
+                     for shape, dt in manifest["input_specs"]]
+        else:
+            self.backend = "jit"
+            self.primary = self._predictor(self.spec.path)
+            specs = self.primary._translated.input_specs()
+            lead = {shape[0] for shape, _ in specs}
+            if len(lead) == 1 and None not in lead:
+                # a fixed-batch export without per-bucket siblings: the
+                # ladder collapses to the one batch it can run
+                self.ladder = BucketLadder([lead.pop()])
+            self.predictors = {b: self.primary for b in self.ladder}
+        for i, (shape, dt) in enumerate(specs):
+            if any(d is None for d in shape[1:]):
+                raise PreconditionNotMetError(
+                    f"serving model {self.name!r}: input {i} has a "
+                    f"non-leading symbolic dim {shape} — only the batch "
+                    "dim may be dynamic under bucketed serving")
+            if dt not in _NUMPY:
+                raise PreconditionNotMetError(
+                    f"serving model {self.name!r}: input {i} is {dt}, "
+                    "which has no numpy dtype to serve from")
+            self.templates.append((tuple(int(d) for d in shape[1:]), dt))
+            self.np_dtypes.append(np.dtype(_NUMPY[dt]))
+        self.n_inputs = len(self.templates)
+
+    # -- warm-up: one graph per bucket ---------------------------------------
+    def _build(self, bucket):
+        if self.device.type == "cuda":
+            return _BucketGraph(self.predictors[bucket].clone(),
+                                self.templates, bucket, self.stream)
+        return _EagerBucket(self.predictors[bucket],
+                            [(r, np.dtype(n)) for (r, _), n in
+                             zip(self.templates, self.np_dtypes)], bucket)
+
+    def _event(self, kind, bucket):
+        self.events.append({"site": self.site, "kind": kind,
+                            "bucket": bucket, "model": self.name,
+                            "graph": self.device.type == "cuda"})
+
+    def warmup(self):
+        if str(_flags.flag("graph_lint")).lower() != "off":
+            raise UnimplementedError(
+                f"serving model {self.name!r}: the graph-lint admission "
+                "gate is not ported (ROADMAP A13); set FLAGS_graph_lint="
+                "'off'")
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+        for b in self.ladder:
+            self.executables[b] = self._build(b)
+            self._event("serving_capture", b)
+        self.admitted = True
+
+    def late_compile(self, bucket):
+        """A bucket without a warm-up executable reached a worker.
+        Strict mode refuses; otherwise capture it now, recorded as a
+        steady-state capture so the zero-capture check visibly fails."""
+        if bool(_flags.flag("serving_strict")):
+            raise PreconditionNotMetError(
+                f"serving model {self.name!r}: bucket {bucket} has no "
+                "warm-up graph (FLAGS_serving_strict=True refuses "
+                "steady-state captures — extend the bucket ladder and "
+                "re-warm instead)")
+        with self._build_lock:
+            ex = self.executables.get(bucket)
+            if ex is None:
+                ex = self._build(bucket)
+                self._event("serving_recapture", bucket)
+                self.bump(steady_compiles=1)
+                self.executables[bucket] = ex
+        return ex
+
+    def slot_signals(self):
+        return None
+
+    def close(self):
+        self.executables.clear()
+
+
+# ---------------------------------------------------------------------------
+# Worker: decode batches synchronously, dense batches pipelined
+# ---------------------------------------------------------------------------
+
+class _Worker(threading.Thread):
+    """One serving thread.  A decode batch runs whole (prefill + decode
+    loop) and its rows go back per request.  A dense batch is staged
+    (concatenate, pad to its bucket), handed to the bucket's executable
+    without waiting, and fenced only when more than the pipeline depth
+    are in flight or the queue runs dry: the host staging of batch N+1
+    overlaps the device's work on batch N.  Each worker holds its own
+    ``Predictor.clone()`` of every dense model's predictors (the CPU's
+    eager path runs through them)."""
+
+    def __init__(self, server: "Server", idx: int, depth: int):
         super().__init__(name=f"serving-worker-{idx}", daemon=True)
         self._server = server
+        self.clones = {name: {b: p.clone() for b, p in rt.predictors.items()}
+                       for name, rt in server._models.items()
+                       if rt.kind == "dense"}
+        self._depth = max(1, int(depth))
+        self._inflight: deque = deque()
 
     def _execute(self, batch: Batch):
         rt = self._server._models[batch.model]
+        if rt.kind == "decode":
+            self._execute_decode(rt, batch)
+            return
+        host = [np.concatenate([r.inputs[i] for r in batch.requests], axis=0)
+                if len(batch.requests) > 1 else batch.requests[0].inputs[i]
+                for i in range(rt.n_inputs)]
+        padded = pad_to_bucket(host, batch.rows, batch.bucket)
+        ex = rt.executables.get(batch.bucket)
+        if ex is None:
+            ex = rt.late_compile(batch.bucket)
+        pending = ex.dispatch(padded, self.clones[batch.model][batch.bucket])
+        self._inflight.append((batch, pending))
+        while len(self._inflight) > self._depth:
+            self._fence_oldest()
+
+    def _execute_decode(self, rt, batch):
         toks = rt.execute(batch)
         now = time.perf_counter()
         off = 0
@@ -67,6 +460,36 @@ class _Worker(threading.Thread):
                 padded_rows=batch.bucket - batch.rows,
                 tokens=sum(r.rows * r.max_new for r in batch.requests))
 
+    def _fence_oldest(self):
+        batch, pending = self._inflight.popleft()
+        try:
+            outs = pending.fence()
+        except Exception as e:   # noqa: BLE001 — fail this batch only
+            self._fail(batch, e)
+            return
+        self._complete(batch, outs)
+
+    def _drain(self):
+        while self._inflight:
+            self._fence_oldest()
+
+    def _complete(self, batch: Batch, outs):
+        """Resolve each request with exactly its rows (copied out of the
+        batch's buffers: padding never leaks, and no result pins them).
+        The future carries ``bucket`` and ``batch_rows``, the batch the
+        request rode (what the JAX package records on its trace span)."""
+        rt = self._server._models[batch.model]
+        now = time.perf_counter()
+        off = 0
+        for r in batch.requests:
+            r.future.bucket, r.future.batch_rows = batch.bucket, batch.rows
+            r.future.set_result([o[off:off + r.rows].copy() for o in outs])
+            rt.latency.observe(now - r.t_enqueue)
+            off += r.rows
+        rt.rate.add(len(batch.requests))
+        rt.bump(completed=len(batch.requests), batches=1, rows=batch.rows,
+                padded_rows=batch.bucket - batch.rows)
+
     def _fail(self, batch: Batch, exc: Exception):
         rt = self._server._models[batch.model]
         for r in batch.requests:
@@ -77,44 +500,100 @@ class _Worker(threading.Thread):
     def run(self):
         q = self._server._dispatch_q
         while True:
-            batch = q.get()
+            try:
+                batch = q.get(timeout=0.02)
+            except queue.Empty:
+                # the queue ran dry: latency beats pipelining, fence now
+                self._drain()
+                continue
             if batch is None:
+                self._drain()
                 return
             try:
                 self._execute(batch)
-            except Exception as e:   # noqa: BLE001 — fail the batch, not the server
+            except Exception as e:   # noqa: BLE001 — fail the batch only
                 self._fail(batch, e)
+            if q.empty():
+                self._drain()
+
+
+# ---------------------------------------------------------------------------
+# The server
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ServingConfig:
+    """Server-wide knobs; None fields fall back to FLAGS_serving_*."""
+
+    workers: Optional[int] = None
+    queue_capacity: Optional[int] = None
+    batch_timeout_ms: Optional[float] = None
+    pipeline_depth: Optional[int] = None
+    buckets: Optional[Sequence[int]] = None
 
 
 class Server:
-    """In-process decode serving engine on one device.
+    """In-process serving engine on one device, for dense and decode
+    models side by side.
 
     Lifecycle::
 
         srv = serving.Server()                    # device defaults to cuda
+        srv.register("bert", prefix, buckets=(1, 2, 4, 8, 16))
         srv.register_decode("gpt2", model, batch_buckets=(1, 8),
                             seq_buckets=(128, 256), max_len=256,
                             max_new_tokens=128)
-        srv.start()                               # warm every bucket pair
+        srv.start()              # load, capture every bucket, warm decode
+        out = srv.submit("bert", [ids]).result()  # ids: [rows, 128] numpy
         fut = srv.submit_decode("gpt2", [prompt]) # prompt: 1-D int array
         ids = fut.result()[0]                     # [rows, max_new] int32
         srv.stop()
+
+    ``prefix`` is a :func:`export_for_serving` (or ``jit.save``) prefix,
+    exported on the server's device.  After ``start`` no dense bucket is
+    captured again: :meth:`assert_zero_steady_state_recompiles` is the
+    check.
     """
 
     def __init__(self, config: Optional[ServingConfig] = None, *,
                  device: DeviceLike = None):
         self._config = config or ServingConfig()
         self.device = resolve_device(device)
-        self._models: Dict[str, _DecodeRuntime] = {}
-        self._specs: List[DecodeModelSpec] = []
+        self._models: Dict[str, object] = {}
+        self._specs: List[object] = []
         self._queue: Optional[RequestQueue] = None
         self._dispatch_q: Optional[queue.Queue] = None
         self._scheduler: Optional[threading.Thread] = None
         self._workers: List[_Worker] = []
+        self._warmup_marks: Dict[str, int] = {}
         self._started = False
         self._stopped = False
 
     # -- registry ------------------------------------------------------------
+    def _add_spec(self, spec):
+        if spec.name in {s.name for s in self._specs}:
+            raise InvalidArgumentError(
+                f"model {spec.name!r} is already registered")
+        self._specs.append(spec)
+        return spec
+
+    def register(self, spec_or_name, path: Optional[str] = None,
+                 **kw) -> ModelSpec:
+        """Register a dense model (a ModelSpec, or name + path + ModelSpec
+        kwargs).  Must happen before start()."""
+        if self._started:
+            raise PreconditionNotMetError(
+                "register() after start(): the warm-up contract admits "
+                "no un-warmed model — build a new Server")
+        if isinstance(spec_or_name, ModelSpec):
+            spec = spec_or_name
+        else:
+            if path is None:
+                raise InvalidArgumentError("register(name, path, ...)")
+            kw.setdefault("buckets", self._config.buckets)
+            spec = ModelSpec(name=str(spec_or_name), path=path, **kw)
+        return self._add_spec(spec)
+
     def register_decode(self, spec_or_name, layer=None, **kw
                         ) -> DecodeModelSpec:
         """Register an autoregressive-decode model (a DecodeModelSpec, or
@@ -134,36 +613,40 @@ class Server:
             kw.setdefault("batch_buckets", self._config.buckets)
             spec = DecodeModelSpec(name=str(spec_or_name), layer=layer,
                                    **kw)
-        if spec.name in {s.name for s in self._specs}:
-            raise InvalidArgumentError(
-                f"model {spec.name!r} is already registered")
-        self._specs.append(spec)
-        return spec
+        return self._add_spec(spec)
 
     def models(self) -> List[str]:
         return [s.name for s in self._specs]
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "Server":
-        """Load and warm every registered model, then open the doors
-        (scheduler + worker threads)."""
+        """Load and warm every registered model (dense: capture every
+        bucket), mark the capture record, then open the doors (scheduler
+        + worker threads)."""
         if self._started:
             raise PreconditionNotMetError("Server already started")
         if not self._specs:
             raise PreconditionNotMetError("no models registered")
         for spec in self._specs:
-            rt = _DecodeRuntime(spec, self.device)
+            rt = (_DecodeRuntime if isinstance(spec, DecodeModelSpec)
+                  else _ModelRuntime)(spec, self.device)
             rt.load()
             rt.warmup()
             rt.rate.reset()              # QPS clock starts with traffic
             self._models[spec.name] = rt
+        # the zero-capture invariant is measured from here: a capture
+        # after this mark is a steady-state one
+        self._warmup_marks = {name: len(rt.events)
+                              for name, rt in self._models.items()}
         n_workers = self._config.workers \
             or int(_flags.flag("serving_workers"))
         cap = self._config.queue_capacity \
             or int(_flags.flag("serving_queue_capacity"))
+        depth = self._config.pipeline_depth \
+            or int(_flags.flag("serving_pipeline_depth"))
         self._queue = RequestQueue(cap)
-        self._dispatch_q = queue.Queue(maxsize=n_workers)
-        self._workers = [_Worker(self, i) for i in range(n_workers)]
+        self._dispatch_q = queue.Queue(maxsize=max(1, n_workers * depth))
+        self._workers = [_Worker(self, i, depth) for i in range(n_workers)]
         for w in self._workers:
             w.start()
         self._scheduler = threading.Thread(
@@ -204,7 +687,7 @@ class Server:
         for w in self._workers:
             w.join(timeout=30)
         for rt in self._models.values():
-            rt.close()                  # the slot loops' driver threads
+            rt.close()          # slot loops' threads, dense graphs
         self._stopped = True
 
     def __enter__(self):
@@ -216,13 +699,70 @@ class Server:
         self.stop(drain=not any(exc))
 
     # -- traffic -------------------------------------------------------------
-    def _runtime(self, model: str) -> _DecodeRuntime:
+    def _runtime(self, model: str):
         rt = self._models.get(model)
         if rt is None or not rt.admitted:
             raise NotFoundError(
                 f"model {model!r} is not admitted (registered: "
                 f"{self.models()})")
         return rt
+
+    def _serving(self):
+        if not self._started or self._stopped:
+            raise PreconditionNotMetError(
+                "Server is not serving (start() it / already stopped)")
+
+    def _put(self, rt, req, timeout):
+        rt.bump(requests=1)
+        try:
+            self._queue.put(req, timeout=timeout)
+        except UnavailableError:
+            rt.bump(errors=1)
+            raise
+        return req.future
+
+    def submit(self, model: str, inputs,
+               timeout: Optional[float] = 5.0) -> Future:
+        """Enqueue one request of ``rows`` examples (rows = leading dim)
+        for a dense model; returns a Future resolving to one numpy array
+        per output with exactly ``rows`` rows (padding never leaks).
+        Inputs are cast to the served dtypes.  Blocks up to ``timeout``
+        under backpressure, then raises UnavailableError."""
+        self._serving()
+        rt = self._runtime(model)
+        if rt.kind == "decode":
+            raise InvalidArgumentError(
+                f"model {model!r} is a decode model: use "
+                "submit_decode(model, prompts, max_new_tokens=...)")
+        if len(inputs) != rt.n_inputs:
+            raise InvalidArgumentError(
+                f"model {model!r} takes {rt.n_inputs} inputs, got "
+                f"{len(inputs)}")
+        arrs, rows = [], None
+        for i, (a, (rest, _), dt) in enumerate(zip(inputs, rt.templates,
+                                                    rt.np_dtypes)):
+            a = np.asarray(a, dtype=dt)      # dtype pinned: shape-stable
+            if a.ndim != len(rest) + 1 or tuple(a.shape[1:]) != rest:
+                raise InvalidArgumentError(
+                    f"model {model!r} input {i}: got shape "
+                    f"{list(a.shape)}, served shape is [rows, "
+                    f"{', '.join(map(str, rest))}]")
+            if rows is None:
+                rows = a.shape[0]
+            elif a.shape[0] != rows:
+                raise InvalidArgumentError(
+                    f"model {model!r}: inconsistent request rows "
+                    f"({rows} vs {a.shape[0]} at input {i})")
+            arrs.append(a)
+        if rows == 0:
+            raise InvalidArgumentError("empty request (0 rows)")
+        rt.ladder.bucket_for(rows)           # raises OutOfRange early
+        return self._put(rt, Request(model=model, inputs=tuple(arrs),
+                                     rows=rows), timeout)
+
+    def run(self, model: str, inputs, timeout: Optional[float] = 60.0):
+        """Synchronous convenience: submit + wait."""
+        return self.submit(model, inputs).result(timeout=timeout)
 
     def submit_decode(self, model: str, prompts,
                       max_new_tokens: Optional[int] = None,
@@ -233,21 +773,16 @@ class Server:
         int32 array [len(prompts), max_new_tokens] of generated tokens.
         Blocks up to ``timeout`` under backpressure, then raises
         UnavailableError."""
-        if not self._started or self._stopped:
-            raise PreconditionNotMetError(
-                "Server is not serving (start() it / already stopped)")
+        self._serving()
         rt = self._runtime(model)
+        if rt.kind != "decode":
+            raise InvalidArgumentError(
+                f"model {model!r} is not a decode model: use submit()")
         arrs, max_new = rt.validate(list(prompts), max_new_tokens)
         rt.ladder.bucket_for(len(arrs))      # raises OutOfRange early
-        req = DecodeRequest(model=model, prompts=arrs, rows=len(arrs),
-                            max_new=max_new)
-        rt.bump(requests=1)
-        try:
-            self._queue.put(req, timeout=timeout)
-        except UnavailableError:
-            rt.bump(errors=1)
-            raise
-        return req.future
+        return self._put(rt, DecodeRequest(model=model, prompts=arrs,
+                                           rows=len(arrs), max_new=max_new),
+                         timeout)
 
     def run_decode(self, model: str, prompts,
                    max_new_tokens: Optional[int] = None,
@@ -257,45 +792,66 @@ class Server:
             .result(timeout=timeout)
 
     # -- observability -------------------------------------------------------
+    def compile_events_since_warmup(self) -> List[dict]:
+        """Captures (dense buckets) and cold batches (decode) recorded
+        after the warm-up mark — the steady-state window must keep this
+        empty."""
+        out = []
+        for name, mark in self._warmup_marks.items():
+            out.extend(self._models[name].events[mark:])
+        return out
+
+    def assert_zero_steady_state_recompiles(self) -> None:
+        evs = self.compile_events_since_warmup()
+        if evs:
+            raise PreconditionNotMetError(
+                f"steady-state recompile(s) detected ({len(evs)}): "
+                + "; ".join(f"{e['site']} {e['kind']} bucket {e['bucket']}"
+                            for e in evs[:4]))
+
     def stats(self, model: Optional[str] = None) -> dict:
-        """Serving health snapshot: per-model qps, latency and
-        time-to-first-token percentiles, padding and steady-state cold
-        batches, or all models."""
+        """Serving health snapshot: per-model qps, latency percentiles,
+        padding and steady-state captures or cold batches (decode: time
+        to first token too), or all models."""
         if model is None:
             return {name: self.stats(name) for name in self._models}
         rt = self._runtime(model)
         with rt._mlock:
             c = dict(rt.counters)
         lat = rt.latency.snapshot()
-        ttft = rt.ttft.snapshot()
-        loop = rt._loop.stats() if rt._loop is not None else None
         rows = max(1, c["rows"])
-        return {
+        out = {
             "model": model, "backend": rt.backend,
             "device": str(self.device),
             "buckets": rt.ladder.buckets,
             "requests": c["requests"], "completed": c["completed"],
             "errors": c["errors"], "batches": c["batches"],
-            "tokens": c["tokens"],
             "qps": round(rt.rate.rate(), 2),
             "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
             "max_ms": lat["max_ms"],
-            "ttft_p50_ms": ttft["p50_ms"], "ttft_p99_ms": ttft["p99_ms"],
             "avg_batch_rows": round(c["rows"] / max(1, c["batches"]), 2),
             "padding_ratio": round(c["padded_rows"] /
                                    (rows + c["padded_rows"]), 4),
             "queue_depth": self._queue.depth() if self._queue else 0,
             "steady_compiles": c["steady_compiles"],
-            **({"slot_loop": loop} if loop is not None else {}),
-            **(rt.spec_stats(loop) or {}),
         }
+        if rt.kind == "dense":
+            out["captured"] = self.device.type == "cuda"
+            return out
+        ttft = rt.ttft.snapshot()
+        loop = rt._loop.stats() if rt._loop is not None else None
+        out.update(tokens=c["tokens"], ttft_p50_ms=ttft["p50_ms"],
+                   ttft_p99_ms=ttft["p99_ms"],
+                   **({"slot_loop": loop} if loop is not None else {}),
+                   **(rt.spec_stats(loop) or {}))
+        return out
 
     def signals(self) -> dict:
         """This process's load snapshot: queue depth, average batch
-        occupancy and steady-state cold batches summed over models, and,
-        for slot-mode models (FLAGS_decode_slots), the token-level slot
-        accounting: occupancy is the max over them, the join/retire
-        counters and prefix-cache sizes sum."""
+        occupancy and steady-state captures or cold batches summed over
+        models, and, for slot-mode models (FLAGS_decode_slots), the
+        token-level slot accounting: occupancy is the max over them, the
+        join/retire counters and prefix-cache sizes sum."""
         out = {"queue_depth": self._queue.depth() if self._queue else 0}
         rows = batches = steady = 0
         for rt in self._models.values():

@@ -224,12 +224,15 @@ class _Captured:
             for _ in range(2):
                 self._body()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self._graph = torch.cuda.CUDAGraph()
+        # the captured graph is kept beside its executable so that its
+        # kernel nodes can be read back (``raw_cuda_graph``)
+        self._graph = torch.cuda.CUDAGraph(keep_graph=True)
         # thread-local: a serving thread using the card meanwhile does not
         # invalidate this capture
         with torch.inference_mode(), torch.cuda.graph(
                 self._graph, stream=side, capture_error_mode="thread_local"):
             self._body()
+        self._graph.instantiate()
         torch.cuda.synchronize(self.device)
         self.replays = 0
         self.reset()

@@ -66,6 +66,10 @@ def test_package_imports_with_jax_unimportable():
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.amp, "
             "paddle_tpu_torch.parallel, paddle_tpu_torch.nn\n"
             "from paddle_tpu_torch.text.models import BertForPretraining\n"
+            "import paddle_tpu_torch.jit, paddle_tpu_torch.inference, "
+            "paddle_tpu_torch.static, paddle_tpu_torch.profiler.cuda_graph\n"
+            "from paddle_tpu_torch.serving import export_for_serving\n"
+            "from paddle_tpu_torch.amp import decorate\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -122,3 +126,22 @@ def test_resnet_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     loss = step((np.random.RandomState(0).randn(2, 16, 16, 3)
                  .astype(np.float32),), np.array([0, 3]))
     assert loss.device.type == "cpu" and np.isfinite(float(loss))
+
+
+def test_dense_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
+                                                          tmp_path):
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.static import InputSpec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = torch.nn.Linear(4, 2)
+    prefix = str(tmp_path / "m")
+    jit.save(net, prefix, input_spec=[InputSpec([None, 4])])
+    with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+        jit.load(prefix)
+    with pytest.raises(PreconditionNotMetError):
+        inference.create_predictor(inference.Config(prefix))
+    cfg = inference.Config(prefix)
+    cfg.disable_gpu()
+    out = inference.create_predictor(cfg).run([np.ones((3, 4), "float32")])
+    assert out[0].shape == (3, 2)
+    assert jit.load(prefix, device="cpu").device.type == "cpu"

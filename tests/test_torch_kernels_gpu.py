@@ -22,6 +22,8 @@ import torch
 
 from paddle_tpu_torch.nn.layer.transformer import quantize_kv_rows
 from paddle_tpu_torch.ops.kernels import flash_decode as fd
+from paddle_tpu_torch.profiler.cuda_graph import (graph_kernel_nodes,
+                                                  kernel_node_grids)
 
 pytestmark = pytest.mark.gpu
 
@@ -649,9 +651,11 @@ def _assert_same_state(a, b):
 
 
 def _traced_decode_kernels(fn):
-    """The decode-kernel launches (decode_cluster_kernel) a torch.profiler
-    trace of the device records while ``fn()`` runs; the trace must hold
-    device events."""
+    """The decode-kernel records (decode_cluster_kernel) by name that a
+    torch.profiler trace of the device holds while ``fn()`` runs; the
+    trace must hold device events.  A trace shows which kernels ran, not
+    how often: CUPTI drops records on an H100, so launch counts come from
+    the captured graph's nodes (``profiler.cuda_graph``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -671,8 +675,9 @@ def test_captured_slot_step_equals_eager_step(cuda, kv, C):
     """Five steps from one state, the host rewriting start, active and pos
     between them: planes, logits, tokens and finished bit-equal.  The
     eager step's wrapper counts advance by 12 (one launch a layer); a
-    replay runs no wrapper, counts itself, and a trace of the device
-    shows its 12 decode-kernel launches."""
+    replay runs no wrapper and counts itself; the graph holds 12 decode
+    kernel nodes of 8 x 2 rows (one a layer, run once a replay), and a
+    trace of the device shows the kernel of the cache's dtype run."""
     _, cap, eager = _slot_steps(cuda, kv, C)
     rng = np.random.RandomState(C)
     live = "flash_decode_quant" if kv == "int8" else "flash_decode"
@@ -692,12 +697,13 @@ def test_captured_slot_step_equals_eager_step(cuda, kv, C):
         assert n1 == n0 and cap.replays == r0 + 1
         assert {k: n2[k] - n1[k] for k in n2} == {
             name: 12 if name == live else 0 for name in n2}
+    assert kernel_node_grids(cap._graph, "decode_cluster_kernel") == \
+        {8 * 2: 12}
     traced = _traced_decode_kernels(
         lambda: [cap(start, fin_c, active, C - 1) for _ in range(3)])
-    assert sum(traced.values()) == 12 * 3, traced
     # the int8 cache runs the kernel's int8 instantiation (B4)
-    assert all(("signed char" in k) == (kv == "int8") for k in traced), \
-        traced
+    assert traced and all(("signed char" in k) == (kv == "int8")
+                          for k in traced), traced
 
 
 def test_captured_slot_step_reads_activation_logits(cuda):
@@ -831,9 +837,9 @@ def test_captured_spec_step_equals_eager_step(cuda, kv):
     """The captured speculative step against the same step run eagerly,
     from one state, the host rewriting its vectors between steps: both
     caches' planes, e, cur, finished, ncommit and n bit-equal; a replay
-    runs no wrapper, and a device trace shows 4 x 5 + 12 = 32 decode
-    kernels a replay (the draft's 5 one-token forwards, one verify
-    block)."""
+    runs no wrapper, and the graph holds 4 x 5 + 12 = 32 decode kernel
+    nodes (the draft's 5 one-token forwards over 8 x 2 rows, one verify
+    block over 8 x 2 x 5), which a device trace shows run."""
     from paddle_tpu_torch.framework.flags import flags_restore, \
         flags_snapshot, set_flags
     from paddle_tpu_torch.text.graphs import CapturedSpecSlotStep, \
@@ -883,7 +889,142 @@ def test_captured_spec_step_equals_eager_step(cuda, kv):
             assert torch.equal(x, y)
         out_c, out_e = rc[:2], re[:2]
         pos += rc[3]
+    assert kernel_node_grids(cap._graph, "decode_cluster_kernel") == \
+        {8 * 2: 4 * 5, 8 * 2 * 5: 12}
     traced = _traced_decode_kernels(
         lambda: [cap(start, out_c[1], active, out_c[0], pos, 5)
                  for _ in range(3)])
-    assert sum(traced.values()) == (4 * 5 + 12) * 3, traced
+    assert traced, traced
+
+
+# -- B1 as a registered operator, and the dense serving path ------------------
+#
+# The flash-attention kernels are reached through torch.library operators
+# (``paddle_tpu_torch::flash_attention_fwd``, ``_dq``, ``_dkv``), so that a
+# ``torch.export`` program holds one operator node per attention call and a
+# loaded, captured program still launches the hand-written kernel.
+
+def _tiny_bert(dev, dtype, layers=2):
+    """A BERT of ``layers`` layers at head_dim 64 (hidden 128, 2 heads),
+    seeded, eval."""
+    from paddle_tpu_torch.text.models import BertConfig
+    from paddle_tpu_torch.text.models.bert import BertModel
+    torch.manual_seed(0)
+    m = BertModel(BertConfig.tiny(hidden_size=128, layers=layers, heads=2,
+                                  seq=128), device=dev, dtype=dtype)
+    return m.eval()
+
+
+def _op_nodes(program, name):
+    return [n for n in program.graph.nodes if n.op == "call_function"
+            and name in str(n.target)]
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_op_equals_the_ctypes_launch(cuda, dtype, B):
+    """The operator's CUDA implementation is the wrapper's launch: the same
+    bits as calling the launch directly, at the served shape."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    rng = np.random.RandomState(B)
+    q, k, v = (torch.from_numpy(rng.randn(B, 128, 12 * 64).astype(np.float32))
+               .to(cuda, dtype).view(B, 128, 12, 64).transpose(1, 2)
+               for _ in range(3))
+    n0 = fa.flash_attention.launches_fwd
+    o, lse = torch.ops.paddle_tpu_torch.flash_attention_fwd(
+        q, k, v, None, False, 0.125)
+    o2, lse2 = fa._launch_fwd(q, k, v, None, False, 0.125)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_fwd - n0 == 2
+    assert o.stride() == o2.stride() and torch.equal(o, o2)
+    assert torch.equal(lse, lse2)
+
+
+def test_flash_attention_op_gradients_equal_the_direct_kernel_calls(cuda):
+    """The training path is unchanged: gradients through the operator's
+    registered autograd are the dQ and dK/dV kernels' bits, f32 and bf16."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16):
+        (q, k, v, do), bias, causal = _fa_case("h128_pad_bias", cuda, dtype)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention(*leaves, bias=bias, causal=causal).backward(do)
+        o, lse = fa._launch_fwd(q, k, v, bias, causal, 1 / 128 ** 0.5)
+        dd = fa.flash_dd(o, do)
+        dq = fa.flash_bwd_dq(q, k, v, bias, lse, do, dd, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, bias, lse, do, dd, causal)
+        torch.cuda.synchronize()
+        for t, want in zip(leaves, (dq, dk, dv)):
+            assert torch.equal(t.grad, want), dtype
+
+
+def test_bert_export_holds_one_b1_operator_a_layer(cuda, tmp_path):
+    """jit.save of a 12-layer bf16 BERT on the card: after the save/load
+    round trip the program holds one flash-attention forward node a layer
+    (12) and no SDPA or other attention call; the loaded program equals
+    the eager module bit for bit."""
+    from paddle_tpu_torch import jit
+    m = _tiny_bert(cuda, torch.bfloat16, layers=12)
+    jit.save(m, str(tmp_path / "b"), input_spec=[([None, 128], "int32")])
+    tl = jit.load(str(tmp_path / "b"))
+    assert len(_op_nodes(tl.program(), "flash_attention_fwd")) == 12
+    assert not _op_nodes(tl.program(), "scaled_dot_product")
+    assert not _op_nodes(tl.program(), "einsum")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 128, (4, 128)).astype(np.int32)).to(cuda)
+    with torch.no_grad():
+        want = m(ids)
+    for a, b in zip(tl(ids), want):
+        assert torch.equal(a, b)
+
+
+def test_captured_bucket_replay_equals_the_eager_loaded_program(cuda,
+                                                                tmp_path):
+    """Every bucket's captured graph of a 12-layer BERT holds 12 B1
+    forward kernel nodes and no library attention node, and returns the
+    eager loaded program's bits; the graphs and the workers' clones read
+    the one parameter set of the loaded program; a replay runs no wrapper
+    (the launch counts stay) and start() records one capture a bucket,
+    none after."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    m = _tiny_bert(cuda, torch.bfloat16, layers=12)
+    prefix = str(tmp_path / "bert")
+    buckets = (1, 2, 4, 8, 16)
+    man = serving.export_for_serving(m, prefix, [([None, 128], "int32")],
+                                     buckets=buckets)
+    assert man["mode"] in ("poly", "per_bucket")
+    srv = serving.Server(serving.ServingConfig(workers=2))
+    srv.register("bert", prefix, buckets=buckets)
+    srv.start()
+    try:
+        rt = srv._models["bert"]
+        assert [e["bucket"] for e in rt.events] == list(buckets)
+        ptrs = [p.data_ptr() for p in rt.primary._translated._params]
+        for w in srv._workers:
+            for clone in w.clones["bert"].values():
+                if man["mode"] == "poly":
+                    assert [p.data_ptr() for p in
+                            clone._translated._params] == ptrs
+        rng = np.random.RandomState(1)
+        for b in buckets:
+            ex = rt.executables[b]
+            assert ex.captured
+            assert sum(kernel_node_grids(ex.graph, "fwd_tc_kernel")
+                       .values()) == 12
+            assert not [n for n, _ in graph_kernel_nodes(ex.graph)
+                        if "fwd_tc_kernel" not in n and any(
+                            w in n.lower() for w in ("flash", "fmha",
+                                                     "attention", "sdpa"))]
+            ids = rng.randint(0, 128, (b, 128)).astype(np.int32)
+            n0, r0 = fa.flash_attention.launches_fwd, ex.replays
+            got = ex.dispatch([ids]).fence()
+            assert fa.flash_attention.launches_fwd == n0
+            assert ex.replays == r0 + 1
+            want = rt.predictors[b]._translated(torch.from_numpy(ids))
+            for g, w_ in zip(got, want):
+                assert np.array_equal(g, w_.float().cpu().numpy())
+        out = srv.run("bert", [rng.randint(0, 128, (3, 128))])
+        assert out[0].shape == (3, 128, 128) and out[1].shape == (3, 128)
+        srv.assert_zero_steady_state_recompiles()
+    finally:
+        srv.stop()

@@ -173,6 +173,12 @@ def test_strict_mode_vs_escape_hatch(pair):
             out = srv.run_decode("gpt", [np.ones(12, np.int64)])[0]
             assert out.shape == (1, 4)
             assert srv.stats("gpt")["steady_compiles"] == 1
+            evs = srv.compile_events_since_warmup()
+            assert [(e["kind"], e["bucket"]) for e in evs] == [
+                ("serving_cold_batch", 1)]
+            with pytest.raises(PreconditionNotMetError,
+                               match="steady-state"):
+                srv.assert_zero_steady_state_recompiles()
         finally:
             flags_restore(snap)
     finally:

@@ -12,11 +12,13 @@ import paddle_tpu as paddle
 from paddle_tpu.framework.functional import layer_state
 from paddle_tpu.text.models.bert import BertConfig as JaxBertConfig
 from paddle_tpu.text.models.bert import BertForPretraining as JaxBert
+from paddle_tpu.text.models.bert import BertModel as JaxBertModel
 from paddle_tpu.text.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.text.models.gpt import GPTModel as JaxGPTModel
 from paddle_tpu_torch.framework.bridge import load_jax_state
 from paddle_tpu_torch.text.models import (BertConfig, BertForPretraining,
                                           GPTConfig, GPTModel)
+from paddle_tpu_torch.text.models.bert import BertModel
 
 # f32 comparisons: no TF32 anywhere (a no-op on the CPU, stated anyway)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -64,6 +66,17 @@ def bert_pair(seed, cfg_fields):
     pm = BertForPretraining(BertConfig(**cfg_fields), device="cpu")
     load_jax_state(pm, jax_params(jm))
     return jm, pm
+
+
+def bert_model_pair(seed, cfg_fields):
+    """A JAX BertModel (encoder + pooler) drawn from ``seed`` and the
+    port's on the CPU carrying the same weights, both in eval mode."""
+    paddle.seed(seed)
+    jm = JaxBertModel(JaxBertConfig(**cfg_fields))
+    jm.eval()
+    pm = BertModel(BertConfig(**cfg_fields), device="cpu")
+    load_jax_state(pm, jax_params(jm))
+    return jm, pm.eval()
 
 
 def bert_batch(seed, cfg_fields, batch, seq, n_pred, ragged=True):

@@ -69,6 +69,32 @@ without printing a result:
               shared-prefix pass (6 requests, 256-token prefix, 48-token
               suffix) with the prefix cache on and off: hit tokens > 0,
               rows as above (near ties at most 8.5%), TTFT;
+  6a. sessions parked sessions on the same slot server: 16 seeded
+              conversations of 3 turns (turn 1 of 96-127 tokens, later
+              turns 16-48 new tokens, replies 16-32), each turn of every
+              conversation through submit_decode(session_id=) before the
+              next turn starts, bf16 then int8 KV, with FLAGS_session_store
+              on (restored = 32, parked = 48) and off (the transcript
+              re-prefilled; turns 2-3's TTFT of each), and the first 8
+              conversations through the speculative slot server (restored
+              = 16, the verify block over restored rows): every token held
+              as in the slots phase (near ties at most 4%), every restore's
+              pull of the row's window equal to its snapshot bit for bit,
+              every step a replay of a graph with the slots and spec
+              phases' decode nodes; spill and restart (a write-through
+              spill directory: spilled blobs equal the RAM snapshots byte
+              for byte, one blob truncated, a new server restores the
+              other 15 for turn 3 and re-prefills the torn one); drain (8
+              requests of 96 new tokens: drain() parks 8 mid-generation,
+              their futures fail with UnavailableError, a second server
+              over the spill directory resumes each, its preseed exact);
+              parked capacity (1000 conversations of 160 + 2 tokens:
+              host bytes a session held to the widths, parks a second,
+              ring bytes a conversation with and without the store); the
+              KV handoff (prefill_handoff -> serialize_kv -> deserialize_kv
+              -> decode_from_handoff on the serving phase's first 8
+              requests, bf16 and int8: planes exact, tokens equal to the
+              in-process continuation, blob bytes and seconds);
   6b. spec    speculative decoding, GPT-2 small target and a random
               4-layer draft (bench.py's draft widths at vocab 50257),
               gamma 4, bf16: generate() at batch 1 and 8, 128-token
@@ -172,6 +198,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1472,6 +1499,617 @@ def phase_slots(torch, model, seed):
     return out
 
 
+# -- phase 6a: parked sessions and the prefill -> decode KV handoff ----------
+
+# multi-turn chat on the slots phase's server (8 slots, chunk 64, one
+# 768-column ring): 16 seeded conversations of 3 turns, turn 1 of 96-127
+# tokens, each later turn 16-48 new tokens, each reply 16-32 tokens (the
+# session settings of bench.py:1290-1430 bench_prefix_cache)
+CHAT = dict(conversations=16, turns=3, first=(96, 128), more=(16, 49),
+            reply=(16, 33))
+# the first 8 conversations again through the speculative slot server
+SPEC_CONVERSATIONS = 8
+# drain: 8 session requests of 96 new tokens, parked mid-generation
+DRAIN_REQUESTS, DRAIN_NEW = 8, 96
+# parked capacity (bench.py:1394-1427): conversations of 2.5 chunks (160
+# tokens) and 2 new tokens each, all parked into one store.  Cut from
+# bench.py's 1000 to 256 (still >= 3 x 8 slots, as its claim needs): on
+# an H100 1000 took 43 s (23 parks a second, three eager 64-token
+# chunks a conversation), the whole phase's budget
+PARK_SESSIONS, PARK_PROMPT, PARK_NEW = 256, 2 * CHUNK + CHUNK // 2, 2
+# the handoff: the serving phase's first 8 requests, at its buckets
+HANDOFF_REQUESTS = 8
+HANDOFF_GRID = dict(GRID, batch_buckets=(HANDOFF_REQUESTS,))
+
+
+def _chat_plan(seed, vocab):
+    """Each conversation's turns: the turn's new tokens and its reply
+    length."""
+    rng = np.random.RandomState(seed)
+    plan = []
+    for _ in range(CHAT["conversations"]):
+        turns = []
+        for t in range(CHAT["turns"]):
+            lo, hi = CHAT["first"] if t == 0 else CHAT["more"]
+            turns.append((rng.randint(1, vocab, int(rng.randint(lo, hi)))
+                          .astype(np.int32),
+                          int(rng.randint(*CHAT["reply"]))))
+        plan.append(turns)
+    return plan
+
+
+def _chat(srv, plan, turns, trans=None, after_turn=None):
+    """Serve the conversations turn by turn through
+    ``submit_decode(session_id=)``: every conversation's turn t is
+    submitted (all at once) and answered before turn t + 1 starts; a
+    turn's prompt is the transcript so far plus the turn's new tokens.
+    Returns the (prompt, max_new) and tokens of every turn served, and the
+    transcripts."""
+    trans = list(trans) if trans is not None \
+        else [np.zeros(0, np.int32)] * len(plan)
+    reqs, served = [], []
+    for t in turns:
+        prompts = [np.concatenate([trans[c], plan[c][t][0]])
+                   for c in range(len(plan))]
+        futs = [srv.submit_decode("gpt2", [p], max_new_tokens=plan[c][t][1],
+                                  timeout=60, session_id=f"conv-{c}")
+                for c, p in enumerate(prompts)]
+        for c, (p, f) in enumerate(zip(prompts, futs)):
+            got = f.result(timeout=600)[0][0]
+            reqs.append((p, plan[c][t][1]))
+            served.append(got)
+            trans[c] = np.concatenate([p, got]).astype(np.int32)
+        if after_turn is not None:
+            after_turn(t)
+    return reqs, served, trans
+
+
+def _leaves(tree):
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _same_bits(torch, a, b):
+    """Two plane trees hold the same dtypes, shapes and bytes."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.cpu().contiguous().view(-1).view(torch.uint8),
+                        y.cpu().contiguous().view(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def _row_bytes(torch, planes, lo, hi, row=0):
+    """Columns [lo, hi) of one row of every plane of a tree, as one CPU
+    byte vector (one device-to-host copy for the card's planes)."""
+    parts = [p[row:row + 1, :, lo:hi].contiguous().view(-1)
+             .view(torch.uint8) for p in _leaves(planes)]
+    return torch.cat(parts).cpu()
+
+
+def _watch_restores(torch, loop):
+    """Hold every session restore of ``loop`` to its snapshot: once a
+    row's last restore block is pushed (before any chunk or step writes
+    the row again), the bytes of the restored window of every plane, read
+    back in one copy, equal the snapshot's columns.  Runs in the loop's
+    driver thread; returns the tally {checked, bad}."""
+    tally = {"checked": 0, "bad": []}
+    push = loop._push_restores
+
+    def watched(i, slot):
+        pending = bool(slot.restore)
+        push(i, slot)
+        req = slot.req
+        if not pending or slot.restore or req.planes_len < loop.T:
+            return
+        lc = req.planes_len
+        hi = lc if lc % loop.T and lc == req.prompt.size \
+            else lc // loop.T * loop.T
+        with torch.inference_mode():
+            got = _row_bytes(torch, loop._cache, slot.start,
+                             slot.start + hi, row=i)
+            want = _row_bytes(torch, req.planes, 0, hi)
+        tally["checked"] += 1
+        if not torch.equal(got, want):
+            tally["bad"].append((req.session_id, lc, hi))
+
+    loop._push_restores = watched
+    return tally
+
+
+def _session_server(torch, model, kv, store, spill="", draft=None):
+    """The slot server with FLAGS_session_store on or off (spill: a
+    write-through spill directory)."""
+    from paddle_tpu_torch.framework import flags
+    flags.set_flags({"FLAGS_session_store": store,
+                     "FLAGS_session_store_dir": spill,
+                     "FLAGS_session_park_after_ms": 0})
+    try:
+        return _slot_server(torch, model, kv, draft=draft)
+    finally:
+        flags.set_flags({"FLAGS_session_store": False,
+                         "FLAGS_session_store_dir": ""})
+
+
+def _decode_nodes(model, step, draft=None):
+    """The captured step's decode kernel nodes, read from its graph: 12
+    one-query nodes a plain replay; draft layers x (gamma + 1) one-query
+    and 12 block (verify) nodes a speculative one, told apart by grid."""
+    layers, heads = model.config.num_layers, model.config.num_heads
+    nodes, kernels = _graph_nodes(step._graph, "decode_cluster_kernel")
+    if draft is None:
+        ok = nodes == {SLOTS * heads: layers}
+    else:
+        dn = draft.config.num_layers * (SPEC_GAMMA + 1)
+        ok = nodes == {SLOTS * draft.config.num_heads: dn,
+                       SLOTS * heads * (SPEC_GAMMA + 1): layers}
+    check(ok, f"sessions: graph decode nodes {nodes} of {len(kernels)} "
+          "kernel nodes")
+    return nodes
+
+
+def _check_turns(torch, model, oracle, reqs, served, where, tie_share):
+    """``_check_rows``' rule over many rows at once: the rows of one
+    generate() geometry (prefill bucket P, cache bucket C) are teacher-
+    forced together, 8 a batch (the serving phase's batch bucket, where
+    every served row equals its batch-1 generate(): forward_cached is
+    row-invariant), each fed its own served tokens.  Every token is the
+    oracle's argmax or within SLOT_TIE_RTOL of the oracle's max |logit|
+    below its top logit, and such near ties make at most ``tie_share``
+    of the tokens.  Returns the rows without a near tie and the ties
+    (row, token, gap share)."""
+    groups = {}
+    for i, (p, mn) in enumerate(reqs):
+        check(served[i].shape == (mn,),
+              f"{where}: row {i} shape {served[i].shape}")
+        P = oracle.prefill_bucket(p.size)
+        groups.setdefault((P, oracle.cache_bucket(P, mn)), []).append(i)
+    stats = {}
+    for (P, C), rows in groups.items():
+        for b in range(0, len(rows), 8):
+            part = rows[b:b + 8]
+            ids, start = oracle.pack_prompts([reqs[i][0] for i in part], P)
+            cache, logits = oracle.prefill(ids, start, C)
+            T = max(reqs[i][1] for i in part)
+            fed = np.zeros((len(part), T), np.int64)
+            for j, i in enumerate(part):
+                fed[j, :reqs[i][1]] = served[i]
+            fed = torch.as_tensor(fed, device="cuda")
+            start = torch.as_tensor(start, device="cuda")
+            per = []
+            with torch.inference_mode():
+                for t in range(T):
+                    lg = logits
+                    per.append(torch.stack(
+                        [lg.max(-1).values, lg.gather(1, fed[:, t:t + 1])[:, 0],
+                         lg.abs().max(-1).values, lg.argmax(-1).float()], 1))
+                    if t + 1 < T:
+                        nl, cache = model.forward_cached(
+                            fed[:, t:t + 1].int(), cache, P + t, start)
+                        logits = nl[:, 0].float()
+            per = torch.stack(per, 1).cpu().numpy()
+            for j, i in enumerate(part):
+                stats[i] = per[j]
+    ties, equal = [], 0
+    for i, (p, mn) in enumerate(reqs):
+        row_ties = 0
+        for t, (top, mine, scale, arg) in enumerate(stats[i][:mn]):
+            if int(arg) == int(served[i][t]):
+                continue
+            gap = float(top - mine)
+            check(gap <= SLOT_TIE_RTOL * scale,
+                  f"{where}: row {i} (prompt {p.size}) token {t} = "
+                  f"{int(served[i][t])} lies {gap} below the oracle's top "
+                  f"logit (token {int(arg)}), more than 2^-6 x {scale}")
+            ties.append((i, t, gap / float(scale)))
+            row_ties += 1
+        equal += row_ties == 0
+    tokens = sum(mn for _, mn in reqs)
+    check(len(ties) <= tie_share * tokens,
+          f"{where}: {len(ties)} near-tie tokens of {tokens}, more than "
+          f"{tie_share} of them: {_tie_summary(ties)}")
+    return equal, ties
+
+
+def _chat_run(torch, model, plan, kv, store, draft=None):
+    """One chat run through the slot server (store on or off): every step
+    a replay of the captured step and no wrapper launch, no step built
+    after warm-up, the graph's decode nodes, parks and restores counted
+    (3 and 2 a conversation with the store), every restore's pull equal
+    to its snapshot; TTFT of turns 2-3 (the loop's TTFT window starts
+    afresh after turn 1)."""
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.profiler.metrics import LatencyWindow
+    srv = _session_server(torch, model, kv, store, draft=draft)
+    try:
+        rt = srv._models["gpt2"]
+        loop, step = rt._loop, rt._loop._step
+        check(step.captured, "sessions: the loop's step is not captured")
+        built = dict(rt.gen.counters)
+        watch = _watch_restores(torch, loop)
+        first = {}
+
+        def after_turn(t):
+            # turns 2-3's TTFT: a fresh window once turn 1 is answered
+            if t == 0:
+                first.update(loop.counters)
+                with loop._cond:
+                    loop._ttft = LatencyWindow(maxlen=512)
+
+        fd.launch_counts(reset=True)
+        r0 = step.replays
+        t0 = time.perf_counter()
+        reqs, served, _ = _chat(srv, plan, range(CHAT["turns"]),
+                                after_turn=after_turn)
+        secs = time.perf_counter() - t0
+        counts = fd.launch_counts()
+        sl = loop.stats()
+        sig = srv.signals()
+        steps, parked = sl["steps"], sl["parked"]
+        n = len(plan)
+        where = f"sessions kv={kv} store={'on' if store else 'off'}" \
+            + (" spec" if draft is not None else "")
+        check(step.replays - r0 == steps > 0 and sum(counts.values()) == 0,
+              f"{where}: {step.replays - r0} replays for {steps} steps, "
+              f"wrapper launches {counts}")
+        check(dict(rt.gen.counters) == built,
+              f"{where}: steps built after warm-up: {built} -> "
+              f"{rt.gen.counters}")
+        want = (3 * n, 2 * n) if store else (0, 0)
+        check((parked, sl["restored"]) == want
+              and watch["checked"] == sl["restored"] and not watch["bad"],
+              f"{where}: parked {parked}, restored {sl['restored']} (want "
+              f"{want}), restore pulls checked {watch['checked']}, "
+              f"unequal {watch['bad']}")
+        nodes = _decode_nodes(model, step, draft)
+        verify = model.config.num_layers if draft is not None else 0
+        out = {"parked": parked, "restored": sl["restored"],
+               "restore_pushes": sl["restore_pushes"],
+               "restore_pulls_exact": watch["checked"],
+               "chunks_turn_1": first["chunks"],
+               "chunks_turns_2_3": sl["chunks"] - first["chunks"],
+               "steps": steps,
+               "replays": steps, "wrapper_launches": 0,
+               "decode_kernels_per_replay": sum(nodes.values()),
+               "nodes_by_grid_x": nodes,
+               # one-query launches (B3/B4) and block launches (the verify)
+               "one_query_launches": steps * (sum(nodes.values()) - verify),
+               "block_launches": steps * verify,
+               "serve_s": round(secs, 3),
+               "ttft_turns_2_3_p50_ms": sl["ttft_p50_ms"],
+               "ttft_turns_2_3_p99_ms": sl["ttft_p99_ms"],
+               "sessions_parked": sig.get("sessions_parked", 0),
+               "session_store_bytes": sig.get("session_store_bytes", 0)}
+    finally:
+        srv.stop()
+    return reqs, served, out
+
+
+def _held_for_drain(loop, rows):
+    """Hold the loop's driver, once ``rows`` rows generate, until a park
+    request arrives, so that a drain lands mid-generation.  Returns the
+    event set when the hold begins."""
+    step, ready = loop._decode_step, threading.Event()
+
+    def held():
+        step()
+        if not ready.is_set() and sum(s.state == 2
+                                      for s in loop._slots) == rows:
+            ready.set()
+            t0 = time.perf_counter()
+            while loop._park_req is None and time.perf_counter() - t0 < 60:
+                time.sleep(0.001)
+
+    loop._decode_step = held
+    return ready
+
+
+def _sessions_spill(torch, model, plan, oracle, tmp):
+    """The bf16 chat with a write-through spill directory: turns 1-2 on
+    one server, whose spilled blobs must equal its RAM snapshots byte for
+    byte; one blob truncated; turns 3 on a new server over the directory,
+    which restores every other session (pulls exact) and re-prefills the
+    truncated one; every token held to the oracle."""
+    from paddle_tpu_torch.serving.sessions import SessionSnapshot
+    spill = os.path.join(tmp, "spill")
+    srv = _session_server(torch, model, "bf16", True, spill)
+    try:
+        reqs, served, trans = _chat(srv, plan, range(2))
+        store = srv.session_store
+        ids = store.peek_ids()
+        check(len(ids) == len(plan), f"sessions spill: parked {ids}")
+        same = 0
+        for sid in ids:
+            with open(store._paths(sid)[0], "rb") as f:
+                disk = f.read()
+            same += disk == store._ram[sid].to_bytes() \
+                and SessionSnapshot.from_bytes(disk).to_bytes() == disk
+        check(same == len(ids), f"sessions spill: {same} of {len(ids)} "
+              "spilled blobs equal their RAM snapshots")
+        blob_bytes = sum(os.path.getsize(store._paths(s)[0]) for s in ids)
+    finally:
+        srv.stop()
+    torn = store._paths("conv-0")[0]
+    with open(torn, "r+b") as f:
+        f.truncate(os.path.getsize(torn) // 2)
+    srv = _session_server(torch, model, "bf16", True, spill)
+    try:
+        loop = srv._models["gpt2"]._loop
+        watch = _watch_restores(torch, loop)
+        r3, s3, _ = _chat(srv, plan, [2], trans=trans)
+        c = dict(loop.counters)
+    finally:
+        srv.stop()
+    check(c["restored"] == len(plan) - 1 == watch["checked"]
+          and not watch["bad"] and c["parked"] == len(plan),
+          f"sessions spill: the restarted server restored {c['restored']} "
+          f"(want {len(plan) - 1}, one blob torn), pulls {watch}")
+    equal, ties = _check_turns(torch, model, oracle, reqs + r3, served + s3,
+                               "sessions spill", SLOT_TIE_SHARE["churn"])
+    return {"blobs_equal_ram": same, "spilled_bytes": blob_bytes,
+            "restored_after_restart": c["restored"], "torn_blobs": 1,
+            "rows_without_tie": f"{equal}/{len(reqs) + len(r3)}",
+            **_tie_summary(ties)}
+
+
+def _sessions_drain(torch, model, plan, oracle, tmp):
+    """8 session requests of 96 new tokens; drain() while all 8 generate:
+    8 parked, their futures fail with UnavailableError; each resubmitted
+    to a second server over the shared spill directory resumes: its
+    preseed equals the tokens emitted before the park, the rest is held
+    to the oracle."""
+    from paddle_tpu_torch.framework.enforce import UnavailableError
+    from paddle_tpu_torch.serving.sessions import SessionSnapshot
+    spill = os.path.join(tmp, "drain")
+    prompts = [plan[c][0][0] for c in range(DRAIN_REQUESTS)]
+    srv = _session_server(torch, model, "bf16", True, spill)
+    try:
+        loop = srv._models["gpt2"]._loop
+        ready = _held_for_drain(loop, DRAIN_REQUESTS)
+        futs = [srv.submit_decode("gpt2", [p], max_new_tokens=DRAIN_NEW,
+                                  timeout=60, session_id=f"drain-{c}")
+                for c, p in enumerate(prompts)]
+        check(ready.wait(120), "sessions drain: the rows never all "
+              "generated")
+        report = srv.drain(timeout_s=60)
+        refused = 0
+        for f in futs:
+            try:
+                f.result(timeout=60)
+            except UnavailableError:
+                refused += 1
+        store = srv.session_store
+    finally:
+        srv.stop()
+    check(report["parked_sessions"] == DRAIN_REQUESTS and report["drained"]
+          and refused == DRAIN_REQUESTS,
+          f"sessions drain: {report}, {refused} futures failed with "
+          "UnavailableError")
+    snaps = {}
+    for c in range(DRAIN_REQUESTS):
+        with open(store._paths(f"drain-{c}")[0], "rb") as f:
+            snaps[c] = SessionSnapshot.from_bytes(f.read())
+        s = snaps[c]
+        check(s.remaining > 0 and len(s.emitted) + s.remaining == DRAIN_NEW
+              and s.planes is not None and s.logits is not None,
+              f"sessions drain: conversation {c} parked {len(s.emitted)} "
+              f"tokens, {s.remaining} left")
+    srv = _session_server(torch, model, "bf16", True, spill)
+    try:
+        loop = srv._models["gpt2"]._loop
+        watch = _watch_restores(torch, loop)
+        futs = [srv.submit_decode("gpt2", [p], max_new_tokens=DRAIN_NEW,
+                                  timeout=60, session_id=f"drain-{c}")
+                for c, p in enumerate(prompts)]
+        served = [f.result(timeout=600)[0][0] for f in futs]
+        c = dict(loop.counters)
+    finally:
+        srv.stop()
+    replayed = sum(list(served[i][:len(snaps[i].emitted)])
+                   == snaps[i].emitted for i in range(DRAIN_REQUESTS))
+    check(c["restored"] == DRAIN_REQUESTS == watch["checked"]
+          == replayed and not watch["bad"],
+          f"sessions drain: restored {c['restored']}, pulls {watch}, "
+          f"{replayed} preseeds replayed exactly")
+    equal, ties = _check_turns(
+        torch, model, oracle, [(p, DRAIN_NEW) for p in prompts], served,
+        "sessions drain", SLOT_TIE_SHARE["churn"])
+    return {"parked_sessions": report["parked_sessions"],
+            "refused_unavailable": refused,
+            "emitted_before_park": [len(snaps[i].emitted)
+                                    for i in range(DRAIN_REQUESTS)],
+            "preseeds_exact": replayed, "restored": c["restored"],
+            "rows_without_tie": f"{equal}/{DRAIN_REQUESTS}",
+            **_tie_summary(ties)}
+
+
+def _sessions_capacity(torch, model, seed):
+    """PARK_SESSIONS conversations of PARK_PROMPT tokens and PARK_NEW new
+    tokens through one slot loop into one store: host bytes a session
+    (held to the widths: every column of every plane, and 8 bytes a
+    token), parks a second (submit to the last park), and the ring's
+    device bytes a conversation without the store (the 8 slot rows) and
+    with it (the slot rows plus the parked)."""
+    from paddle_tpu_torch.serving.sessions import SessionStore
+    from paddle_tpu_torch.serving.slots import SlotLoop
+    from paddle_tpu_torch.text.generation import Generator
+    cfg = model.config
+    gen = Generator(model, seq_buckets=(128, SLOT_CACHE), max_len=SLOT_CACHE)
+    store = SessionStore()
+    loop = SlotLoop(gen, SLOTS, SLOT_CACHE, CHUNK, session_store=store)
+    rng = np.random.RandomState(seed + 23)
+    prompts = [rng.randint(1, cfg.vocab_size, PARK_PROMPT).astype(np.int32)
+               for _ in range(PARK_SESSIONS)]
+    try:
+        loop.submit(prompts[0][:CHUNK], 1).result(timeout=600)  # warm-up
+        t0 = time.perf_counter()
+        futs = [loop.submit(p, PARK_NEW, session_id=f"park-{i}")
+                for i, p in enumerate(prompts)]
+        for f in futs:
+            f.result(timeout=600)
+        park_s = time.perf_counter() - t0
+        ring = sum(p.numel() * p.element_size() for p in loop._step.planes())
+        parked, host = len(store), store.nbytes()
+    finally:
+        loop.close()
+    tokens = PARK_PROMPT + PARK_NEW
+    # K and V of every layer, in the model's dtype
+    per_token = cfg.num_layers * 2 * cfg.hidden_size \
+        * model.wte.weight.element_size()
+    check(parked == PARK_SESSIONS
+          and host == parked * tokens * (per_token + 8),
+          f"sessions capacity: {parked} parked in {host} bytes, want "
+          f"{PARK_SESSIONS} x {tokens} x ({per_token} + 8)")
+    del store
+    return {"sessions": parked, "tokens_a_session": tokens,
+            "host_bytes_per_session": host // parked,
+            "host_bytes_per_token": per_token, "host_bytes": host,
+            "park_s": round(park_s, 3),
+            "parks_per_s": round(parked / park_s, 1),
+            "ring_bytes": ring,
+            "ring_bytes_per_conversation_without_store": ring // SLOTS,
+            "ring_bytes_per_conversation_with_store":
+                ring // (SLOTS + parked)}
+
+
+def _sessions_handoff(torch, model, seed):
+    """prefill_handoff -> serialize_kv -> deserialize_kv ->
+    decode_from_handoff on the serving phase's first 8 requests, bf16 then
+    int8 KV, at the serving phase's buckets: the tokens equal the
+    in-process continuation (the same handoff decoded on the device) bit
+    for bit, and the decodes launch B3 (B4) once a layer a step."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.serving.cluster.handoff import deserialize_kv
+    prompts = _traffic(seed, model.config.vocab_size)[:HANDOFF_REQUESTS]
+    layers = model.config.num_layers
+    out = {}
+    for kv in ("bf16", "int8"):
+        flags.set_flags({"FLAGS_kv_cache_dtype": kv})
+        srv = serving.Server()
+        srv.register_decode("gpt2", model, **HANDOFF_GRID)
+        srv.start()
+        try:
+            fd.launch_counts(reset=True)
+            h = srv.prefill_handoff("gpt2", prompts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob = h.to_bytes()
+            ser = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = deserialize_kv(blob)
+            deser = time.perf_counter() - t0
+            exact = _same_bits(torch, back.cache, h.cache) \
+                and _same_bits(torch, back.logits0, h.logits0)
+            wire = srv.decode_from_handoff("gpt2", back)
+            local = srv.decode_from_handoff("gpt2", h)   # planes in place
+            counts = fd.launch_counts()
+        finally:
+            srv.stop()
+        name = "flash_decode_quant" if kv == "int8" else "flash_decode"
+        want = 2 * layers * MAX_NEW
+        check(exact and np.array_equal(wire, local)
+              and wire.shape == (HANDOFF_REQUESTS, MAX_NEW)
+              and counts[name] == want
+              and sum(counts.values()) == want,
+              f"sessions handoff kv={kv}: planes exact {exact}, tokens "
+              f"equal {np.array_equal(wire, local)}, launches {counts} "
+              f"(want {name} {want})")
+        out[kv] = {"blob_bytes": len(blob), "serialize_s": round(ser, 4),
+                   "deserialize_s": round(deser, 4),
+                   "prefill_s": h.meta["prefill_s"],
+                   "tokens_equal_in_process": True, "launches": counts}
+    return out
+
+
+def phase_sessions(torch, model, seed):
+    """Parked sessions on the slot server and the KV handoff: the chat in
+    bf16 and int8 KV with the store on and off, the first 8 conversations
+    through the speculative slot server; spill and restart; drain; parked
+    capacity; the handoff."""
+    import tempfile
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.text.generation import Generator
+    plan = _chat_plan(seed + 13, model.config.vocab_size)
+    oracle = Generator(model, seq_buckets=(128, 256, 512, SLOT_CACHE),
+                       max_len=SLOT_CACHE)
+    snap = flags.flags_snapshot()
+    out, secs, t_phase = {}, {}, time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sessions_", dir=os.path.join(ROOT,
+                                                                  "build"))
+    try:
+        draft = _draft_model(torch, seed + 5, model.config.vocab_size)
+        for kv in ("bf16", "int8"):
+            for store in (True, False):
+                t0 = time.perf_counter()
+                reqs, served, run = _chat_run(torch, model, plan, kv, store)
+                flags.set_flags({"FLAGS_kv_cache_dtype": kv})
+                equal, ties = _check_turns(
+                    torch, model, oracle, reqs, served,
+                    f"sessions kv={kv} store={store}",
+                    SLOT_TIE_SHARE["churn"])
+                run.update(rows_without_tie=f"{equal}/{len(reqs)}",
+                           tokens_checked=sum(mn for _, mn in reqs),
+                           **_tie_summary(ties))
+                out[f"{kv}_{'on' if store else 'off'}"] = run
+                secs[f"{kv}_{'on' if store else 'off'}"] = round(
+                    time.perf_counter() - t0, 1)
+                log("sessions", kv_cache=kv, store=store, **run)
+        t0 = time.perf_counter()
+        reqs, served, run = _chat_run(torch, model,
+                                      plan[:SPEC_CONVERSATIONS], "bf16",
+                                      True, draft=draft)
+        flags.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
+        equal, ties = _check_turns(torch, model, oracle, reqs, served,
+                                   "sessions spec", SLOT_TIE_SHARE["churn"])
+        run.update(rows_without_tie=f"{equal}/{len(reqs)}",
+                   **_tie_summary(ties))
+        out["spec"] = run
+        secs["spec"] = round(time.perf_counter() - t0, 1)
+        log("sessions", path="spec", **run)
+        del draft
+        for name, fn in (("spill", _sessions_spill),
+                         ("drain", _sessions_drain)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, model, plan, oracle, tmp)
+            secs[name] = round(time.perf_counter() - t0, 1)
+            log("sessions", path=name, **out[name])
+        t0 = time.perf_counter()
+        out["capacity"] = _sessions_capacity(torch, model, seed)
+        secs["capacity"] = round(time.perf_counter() - t0, 1)
+        log("sessions", path="capacity", **out["capacity"])
+        t0 = time.perf_counter()
+        out["handoff"] = _sessions_handoff(torch, model, seed)
+        secs["handoff"] = round(time.perf_counter() - t0, 1)
+        log("sessions", path="handoff", **out["handoff"])
+    finally:
+        flags.flags_restore(snap)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the path's launches: a replay's decode nodes times the replays (no
+    # wrapper runs in a replay), and the handoff decodes' wrapper counts
+    hand = {kv: out["handoff"][kv]["launches"] for kv in ("bf16", "int8")}
+    out["launches"] = {
+        "flash_decode": out["bf16_on"]["one_query_launches"]
+        + out["bf16_off"]["one_query_launches"]
+        + out["spec"]["one_query_launches"]
+        + hand["bf16"]["flash_decode"],
+        "flash_decode_quant": out["int8_on"]["one_query_launches"]
+        + out["int8_off"]["one_query_launches"]
+        + hand["int8"]["flash_decode_quant"],
+        "flash_decode_block": out["spec"]["block_launches"],
+        # no int8 speculative session runs in this phase
+        "flash_decode_quant_block": 0}
+    check(all(out["launches"][k] > 0 for k in (
+        "flash_decode", "flash_decode_quant", "flash_decode_block")),
+        f"sessions: a kernel of the path never ran: {out['launches']}")
+    log("sessions", launches=out["launches"], seconds=secs,
+        total_s=round(time.perf_counter() - t_phase, 1))
+    return out
+
+
 # -- phase 6b: speculative decoding and beam search --------------------------
 
 # the draft: bench.py:1101-1104's widths (hidden 256, 4 layers, 4 heads,
@@ -2282,18 +2920,40 @@ def _dense_traffic(srv, vocab, seed):
     return done, errors
 
 
+def _reference_graph(torch, model, b):
+    """The eager decorated model's forward at bucket ``b`` captured as one
+    CUDA graph: (input buffer, outputs, graph).  Replaying it runs the
+    eager forward's kernels on the buffer's ids; ``_dense_check`` holds
+    its first replay a bucket to the eager forward bit for bit."""
+    ids = torch.zeros((b, DENSE["seq"]), dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        for _ in range(2):
+            model(ids)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        outs = model(ids)
+    return ids, outs, graph
+
+
 def _dense_check(torch, model, done):
     """Every served result against the eager decorated model on its own
     rows at the bucket it rode (requests of one bucket packed together,
     zero rows padding the last pass), compared on the card with one read
     back at the end: rows exact, and each output within DENSE_RTOL of
-    max(1, max |ref|) over the request's rows.  Returns (worst share,
-    requests bit-equal)."""
+    max(1, max |ref|) over the request's rows.  The reference passes
+    replay the eager forward captured once a bucket, whose first pass
+    must equal the eager forward bit for bit (the eager passes took ~17 s
+    of the phase).  Returns (worst share, requests bit-equal)."""
     passes = []          # (requests, per output: [rows] diff, [rows] |ref|)
     by_bucket = {}
     for r in done:
         by_bucket.setdefault(r[2], []).append(r)
     for b, reqs in sorted(by_bucket.items()):
+        ids_buf, ref, graph = _reference_graph(torch, model, b)
+        first = True
         i = 0
         while i < len(reqs):
             group, rows = [], 0
@@ -2310,8 +2970,15 @@ def _dense_check(torch, model, done):
                       f"{[o.shape for o in out]}")
             ids = np.zeros((b, DENSE["seq"]), np.int32)
             ids[:rows] = np.concatenate([g[0] for g in group])
-            with torch.no_grad():
-                ref = model(torch.from_numpy(ids).cuda())
+            ids_buf.copy_(torch.from_numpy(ids))
+            graph.replay()
+            if first:
+                with torch.no_grad():
+                    eager = model(ids_buf)
+                check(all(torch.equal(x, y) for x, y in zip(ref, eager)),
+                      f"dense: the captured reference at bucket {b} differs "
+                      "from the eager forward")
+                first = False
             stats = []
             for k, want in enumerate(ref):
                 got = torch.from_numpy(np.concatenate(
@@ -3521,6 +4188,8 @@ def main(argv=None):
     phase_profile(torch, model, args.seed)
     _at("slots")
     slots = phase_slots(torch, model, args.seed)
+    _at("sessions")
+    sessions = phase_sessions(torch, model, args.seed)
     _at("spec")
     spec = phase_spec(torch, model, args.seed)
     _at("beam")
@@ -3603,7 +4272,8 @@ def main(argv=None):
              "slot_step_per_replay": slots["bf16"][
                  "decode_kernels_per_replay"],
              "spec_slot_step_draft_per_replay": spec["slots"]["bf16"][
-                 "draft_decode_kernels_per_replay"]},
+                 "draft_decode_kernels_per_replay"],
+             "sessions": sessions["launches"]["flash_decode"]},
          "max_abs_err": worst["flash_decode"],
          "ms": timing["flash_decode"],
          "plain_ms": timing["flash_decode_plain"],
@@ -3620,7 +4290,8 @@ def main(argv=None):
              "slot_step_per_replay": slots["int8"][
                  "decode_kernels_per_replay"],
              "spec_slot_step_draft_per_replay": spec["slots"]["int8"][
-                 "draft_decode_kernels_per_replay"]},
+                 "draft_decode_kernels_per_replay"],
+             "sessions": sessions["launches"]["flash_decode_quant"]},
          "max_abs_err": worst["flash_decode_quant"],
          "ms": timing["flash_decode_quant"],
          "plain_ms": timing["flash_decode_quant_plain"],
@@ -3639,7 +4310,8 @@ def main(argv=None):
              "spec_generate_b8": gen_b8["bf16_b8"]["random_draft"][
                  "launches"]["flash_decode_block"],
              "spec_slot_step_per_replay": spec["slots"]["bf16"][
-                 "verify_decode_kernels_per_replay"]},
+                 "verify_decode_kernels_per_replay"],
+             "sessions": sessions["launches"]["flash_decode_block"]},
          "max_abs_err": worst["flash_decode_block"],
          "ms": timing["flash_decode_block"],
          "plain_ms": timing["flash_decode_block_plain"],
@@ -3654,7 +4326,8 @@ def main(argv=None):
              "spec_generate_b8": gen_b8["int8_b8"]["random_draft"][
                  "launches"]["flash_decode_quant_block"],
              "spec_slot_step_per_replay": spec["slots"]["int8"][
-                 "verify_decode_kernels_per_replay"]},
+                 "verify_decode_kernels_per_replay"],
+             "sessions": sessions["launches"]["flash_decode_quant_block"]},
          "max_abs_err": worst["flash_decode_quant_block"],
          "ms": timing["flash_decode_quant_block"],
          "plain_ms": timing["flash_decode_quant_block_plain"],

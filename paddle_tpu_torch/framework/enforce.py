@@ -40,6 +40,12 @@ class UnimplementedError(EnforceNotMet):
 
 
 class UnavailableError(EnforceNotMet):
-    """Transient refusal (backpressure, closed queue)."""
+    """Transient refusal (backpressure, closed queue, a draining server).
+    A refusal that expects the caller to come back carries a
+    ``retry_after_s`` hint; None means no estimate."""
 
     code = "UNAVAILABLE"
+
+    def __init__(self, msg, op=None, retry_after_s=None):
+        super().__init__(msg, op)
+        self.retry_after_s = retry_after_s

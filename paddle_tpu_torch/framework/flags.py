@@ -206,6 +206,42 @@ define_flag("prefix_cache_hbm_mb", 256.0,
             "least-recently-used unpinned leaf blocks evict until the "
             "cache fits.  0 = unbounded.",
             validator=lambda v: float(v) >= 0.0)
+define_flag("session_store", False,
+            "Parked-session KV store (serving/sessions.py): a decode "
+            "request carrying a session id parks its ring-cache row as a "
+            "host-RAM snapshot at turn end, and the follow-up turn "
+            "restores the snapshot into a slot and decodes from the "
+            "committed position instead of re-prefilling the whole "
+            "history.  Graceful drain parks in-flight session rows "
+            "instead of waiting them out.  Off (default) = session ids "
+            "are ignored; off-path is one Python branch.  Needs "
+            "FLAGS_decode_slots > 0.")
+define_flag("session_store_dir", "",
+            "Optional disk-spill directory for parked sessions (empty = "
+            "host RAM only).  Snapshots write under the sha256-verified "
+            "atomic-manifest discipline; a directory shared between "
+            "servers lets any of them restore a session another parked "
+            "there.")
+define_flag("session_park_after_ms", 0,
+            "Age (ms) a RAM-parked session must reach before it spills "
+            "to FLAGS_session_store_dir.  0 (default) writes through to "
+            "disk at park time, the mode that survives a killed process, "
+            "since a lazily-spilled snapshot still in RAM dies with it.  "
+            "Ignored when the spill directory is unset.",
+            validator=lambda v: int(v) >= 0)
+define_flag("drain_timeout_s",
+            float(os.environ.get("PADDLE_TPU_DRAIN_TIMEOUT_S", "30.0")),
+            "Graceful-drain budget: how long a retiring server may take "
+            "to finish queued batches and slot-loop rows before "
+            "Server.drain() reports work still pending.",
+            validator=lambda v: float(v) > 0)
+define_flag("router_stale_after_s",
+            float(os.environ.get("PADDLE_TPU_ROUTER_STALE_AFTER_S",
+                                 "10.0")),
+            "Router-side eviction threshold: a replica whose heartbeat "
+            "is older than this is evicted from dispatch.  A draining "
+            "Server's refusals carry it as their retry_after_s hint.",
+            validator=lambda v: float(v) > 0)
 
 # ---- Kernels and training -------------------------------------------------
 define_flag("use_pallas_kernels", True,

@@ -21,6 +21,15 @@ speculative step): the served tokens stay those of plain greedy decode.
 The JAX package's acceptance metrics and traced draft/verify spans wait
 with the rest of ``profiler/`` (ROADMAP A13); ``Server.stats()`` carries
 the acceptance counters.
+
+Sessions (FLAGS_session_store): a single-prompt request with a
+``session_id`` takes its conversation's snapshot from the store the
+Server injects and hands it to the slot loop, which restores the parked
+columns instead of prefilling them and parks the row again when the
+turn ends.  Disaggregated serving: ``prefill_handoff`` runs only the
+prefill and returns a :class:`~.cluster.handoff.KVHandoff`, and
+``decode_from_handoff`` resumes decoding from one (or its bytes), on the
+buckets ``submit_decode`` would use.
 """
 from __future__ import annotations
 
@@ -77,6 +86,9 @@ class DecodeRequest:
     # when the batch's prefill logits were ready: the first token is
     # their argmax (time to first token = t_first - t_enqueue)
     t_first: Optional[float] = None
+    # conversation identity (FLAGS_session_store): single-prompt requests
+    # only; the slot loop parks/restores the KV columns under this key
+    session_id: Optional[str] = None
 
 
 class _DecodeRuntime:
@@ -100,6 +112,9 @@ class _DecodeRuntime:
         self._warmed = set()                # {(B, P, C)}
         self._loop = None                   # the SlotLoop in slot mode
         self._spec_base = None              # acceptance totals at warm-up
+        # injected by the Server before warmup (FLAGS_session_store); the
+        # prefix cache is built per runtime in _warmup_slots
+        self.session_store = None
         self.prefix_cache = None
         self.latency = LatencyWindow()
         self.ttft = LatencyWindow()
@@ -180,7 +195,8 @@ class _DecodeRuntime:
         self._loop = SlotLoop(self.gen, S, C, T,
                               eos_token_id=self.spec.eos_token_id,
                               model=self.name,
-                              prefix_cache=self.prefix_cache)
+                              prefix_cache=self.prefix_cache,
+                              session_store=self.session_store)
         self._loop.submit(np.zeros((1,), np.int32), 1).result(timeout=600)
         self._loop.reset_stats()
         if self.prefix_cache is not None:
@@ -252,20 +268,7 @@ class _DecodeRuntime:
         P = self.gen.prefill_bucket(max(p.size for p in prompts))
         C = self.gen.cache_bucket(P, self.steps)
         B = batch.bucket
-        cold = (B, P, C) not in self._warmed
-        if cold:
-            if bool(_flags.flag("serving_strict")):
-                raise PreconditionNotMetError(
-                    f"decode model {self.name!r}: (batch={B}, prompt="
-                    f"{P}, cache={C}) was not warmed "
-                    "(FLAGS_serving_strict=True refuses steady-state "
-                    "cold shapes — extend the ladders and re-warm)")
-            self.bump(steady_compiles=1)
-            self.events.append({"site": f"serving:{self.name}",
-                                "kind": "serving_cold_batch", "bucket": B,
-                                "prompt": P, "cache": C,
-                                "model": self.name, "graph": False})
-            self._warmed.add((B, P, C))
+        self._guard(B, P, C)
         ids, start = self.gen.pack_prompts(prompts, P)
         cache, logits0 = self.gen.prefill(ids, start, C)
         if self.device.type == "cuda":
@@ -277,9 +280,35 @@ class _DecodeRuntime:
                                eos_token_id=self.spec.eos_token_id)
         return toks.cpu().numpy()
 
+    def _snapshot(self, sid):
+        """The session's parked snapshot, if this model parked it."""
+        if sid is None or self.session_store is None:
+            return None
+        snap = self.session_store.take(sid)
+        if snap is not None and snap.model != self.name:
+            # a key collision across models: put the snapshot back
+            # untouched and prefill plainly
+            self.session_store.put(snap)
+            snap = None
+        return snap
+
     def _execute_slots(self, batch):
-        futs = [self._loop.submit(p, r.max_new)
-                for r in batch.requests for p in r.prompts]
+        futs = []
+        for r in batch.requests:
+            sid = r.session_id
+            snap = self._snapshot(sid)
+            for p in r.prompts:
+                try:
+                    futs.append(self._loop.submit(
+                        p, r.max_new, session_id=sid, snapshot=snap))
+                except (InvalidArgumentError, OutOfRangeError):
+                    if snap is None:
+                        raise
+                    # a malformed snapshot must not fail the turn: fall
+                    # back to the plain prefill (the same tokens)
+                    futs.append(self._loop.submit(p, r.max_new,
+                                                  session_id=sid))
+                snap = None             # one snapshot, one restore
         out = np.zeros((batch.bucket, self.steps), np.int32)
         row = 0
         for r in batch.requests:
@@ -294,6 +323,92 @@ class _DecodeRuntime:
             if err is not None and not r.future.done():
                 r.future.set_exception(err)
         return out
+
+    def _guard(self, B, P, C):
+        """The warm-up discipline of the run-to-completion grid (batches
+        and handoff legs alike): a (batch, prompt, cache) point outside
+        the warmed set fails under FLAGS_serving_strict, else runs cold
+        and is recorded."""
+        if (B, P, C) in self._warmed:
+            return
+        if bool(_flags.flag("serving_strict")):
+            raise PreconditionNotMetError(
+                f"decode model {self.name!r}: (batch={B}, prompt="
+                f"{P}, cache={C}) was not warmed "
+                "(FLAGS_serving_strict=True refuses steady-state "
+                "cold shapes — extend the ladders and re-warm)")
+        self.bump(steady_compiles=1)
+        self.events.append({"site": f"serving:{self.name}",
+                            "kind": "serving_cold_batch", "bucket": B,
+                            "prompt": P, "cache": C,
+                            "model": self.name, "graph": False})
+        self._warmed.add((B, P, C))
+
+    # -- disaggregated serving: prefill -> handoff -> decode -----------------
+    def _no_slots(self):
+        if self._loop is not None:
+            raise PreconditionNotMetError(
+                f"decode model {self.name!r}: the KV handoff rides the "
+                "run-to-completion path; set FLAGS_decode_slots=0")
+
+    def prefill_handoff(self, prompts, max_new_tokens=None):
+        """Run ONLY the prefill of ``prompts`` at the buckets
+        ``submit_decode`` would use, and return the KVHandoff a decode
+        resumes from: the device planes (the model's dtype, or int8 +
+        scales), next-token logits, per-row validity offsets and the
+        cache position."""
+        from .cluster.handoff import KVHandoff
+        self._no_slots()
+        arrs, mn = self.validate(list(prompts), max_new_tokens)
+        rows = len(arrs)
+        B = self.ladder.bucket_for(rows)
+        padded = arrs + [np.zeros((1,), np.int32)] * (B - rows)
+        P = self.gen.prefill_bucket(max(p.size for p in padded))
+        C = self.gen.cache_bucket(P, self.steps)
+        self._guard(B, P, C)
+        ids, start = self.gen.pack_prompts(padded, P)
+        t0 = time.monotonic()
+        cache, logits0 = self.gen.prefill(ids, start, C)
+        return KVHandoff(cache=cache, logits0=logits0,
+                         start=np.asarray(start, np.int32), pos=P,
+                         meta={"model": self.name, "rows": rows,
+                               "max_new": mn, "batch": B,
+                               "prompt_bucket": P, "cache_bucket": C,
+                               "prefill_s": round(time.monotonic() - t0,
+                                                  6)})
+
+    def decode_from_handoff(self, handoff):
+        """Resume decoding from a prefill's handoff: planes that arrived
+        serialized (on the host) move to the runtime's device first, then
+        the decode runs from the carried cache position and windows.
+        Returns int32 ids [rows, max_new], the tokens ``submit_decode``
+        gives the same prompts."""
+        self._no_slots()
+        cache = handoff.cache
+        if not cache:
+            raise InvalidArgumentError("empty KV handoff (no planes)")
+        if handoff.meta.get("model", self.name) != self.name:
+            raise InvalidArgumentError(
+                f"KV handoff of model {handoff.meta['model']!r} sent to "
+                f"{self.name!r}")
+        if not all(torch.is_tensor(x) and x.device == self.device
+                   for x in (cache[0][0], handoff.logits0)):
+            handoff = handoff.device(self.device)
+            cache = handoff.cache
+        # the wire carries each layer's planes as a tuple: the model reads
+        # them by name (k, v, k_scale, v_scale)
+        from ..nn.layer.transformer import MultiHeadAttention as _MHA
+        kinds = {2: _MHA.RingCache, 4: _MHA.QuantRingCache}
+        cache = [kinds[len(c)](*c) for c in cache]
+        B = int(handoff.logits0.shape[0])
+        C = int(cache[0][0].shape[2])
+        self._guard(B, int(handoff.pos), C)
+        toks = self.gen.decode(cache, handoff.logits0, handoff.start,
+                               int(handoff.pos), self.steps,
+                               eos_token_id=self.spec.eos_token_id)
+        rows = int(handoff.meta.get("rows", B))
+        mn = int(handoff.meta.get("max_new", self.steps))
+        return toks.cpu().numpy()[:rows, :mn]
 
     @property
     def speculative(self):

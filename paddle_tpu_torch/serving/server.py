@@ -26,10 +26,14 @@ Decode models (``register_decode``/``submit_decode``): ``start`` warms
 every (batch bucket x prefill bucket) pair before a single request is
 admitted.  Under ``FLAGS_decode_slots > 0`` the workers hand each row to
 the model's slot loop (serving/slots.py) instead, which admits and
-retires rows at token boundaries.
+retires rows at token boundaries.  Under ``FLAGS_session_store`` the
+server builds one session store at ``start`` (serving/sessions.py) and
+``submit_decode(session_id=)`` names a conversation; ``drain`` parks the
+live ones.  ``prefill_handoff`` / ``decode_from_handoff`` split a
+decode into its prefill and its decode across a KV handoff.
 
 Not ported: the graph-lint admission gate (``FLAGS_graph_lint`` must be
-"off"), int8 exports, tracing spans, tenants and the cluster hooks.
+"off"), int8 exports, tracing spans, tenants and the cluster router.
 """
 from __future__ import annotations
 
@@ -568,6 +572,12 @@ class Server:
         self._warmup_marks: Dict[str, int] = {}
         self._started = False
         self._stopped = False
+        self._draining = False
+        self._session_store = None      # FLAGS_session_store, at start()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
 
     # -- registry ------------------------------------------------------------
     def _add_spec(self, spec):
@@ -627,9 +637,18 @@ class Server:
             raise PreconditionNotMetError("Server already started")
         if not self._specs:
             raise PreconditionNotMetError("no models registered")
+        if bool(_flags.flag("session_store")):
+            # one store per server: every slot-mode decode model parks
+            # into and restores from it
+            from .sessions import SessionStore
+            self._session_store = SessionStore(
+                spill_dir=str(_flags.flag("session_store_dir")),
+                park_after_ms=int(_flags.flag("session_park_after_ms")))
         for spec in self._specs:
             rt = (_DecodeRuntime if isinstance(spec, DecodeModelSpec)
                   else _ModelRuntime)(spec, self.device)
+            if rt.kind == "decode":
+                rt.session_store = self._session_store
             rt.load()
             rt.warmup()
             rt.rate.reset()              # QPS clock starts with traffic
@@ -690,6 +709,72 @@ class Server:
             rt.close()          # slot loops' threads, dense graphs
         self._stopped = True
 
+    # -- graceful drain ------------------------------------------------------
+    def request_drain(self) -> None:
+        """Flip to drain mode: new submissions fail with UnavailableError
+        (``retry_after_s`` = FLAGS_router_stale_after_s) while everything
+        already admitted runs to completion.  Idempotent."""
+        self._draining = True
+
+    def _reject_if_draining(self) -> None:
+        if self._draining:
+            raise UnavailableError(
+                "server is draining (graceful retirement in progress)",
+                retry_after_s=float(_flags.flag("router_stale_after_s")))
+
+    def pending_requests(self) -> int:
+        """Requests admitted but not yet completed or failed, summed over
+        models: 0 means every admitted request was answered."""
+        n = 0
+        for rt in self._models.values():
+            with rt._mlock:
+                c = rt.counters
+                n += c["requests"] - c["completed"] - c["errors"]
+        return n
+
+    def drain(self, timeout_s: Optional[float] = None) -> dict:
+        """Graceful drain: stop admitting (:meth:`request_drain`), park
+        the live sessions (their futures fail with a retryable
+        UnavailableError; the turn submitted again, here or to a server
+        sharing the spill directory, resumes from the snapshot), then
+        wait until the queue is empty and every admitted request has
+        resolved.  Returns a report; ``drained`` False means the timeout
+        (FLAGS_drain_timeout_s) expired with work pending."""
+        if timeout_s is None:
+            timeout_s = float(_flags.flag("drain_timeout_s"))
+        t0 = time.monotonic()
+        self.request_drain()
+        if not self._started or self._stopped:
+            return {"drained": True, "pending": 0, "queue_depth": 0,
+                    "waited_s": 0.0, "parked_sessions": 0}
+        parked = self.park_sessions(timeout_s=float(timeout_s))
+        deadline = t0 + max(0.0, float(timeout_s))
+        while True:
+            pending = self.pending_requests()
+            qdepth = self._queue.depth()
+            done = pending <= 0 and qdepth == 0
+            if done or time.monotonic() >= deadline:
+                return {"drained": done, "pending": max(0, int(pending)),
+                        "queue_depth": int(qdepth),
+                        "waited_s": round(time.monotonic() - t0, 3),
+                        "parked_sessions": parked}
+            time.sleep(min(0.02, max(0.001, timeout_s / 50.0)))
+
+    def park_sessions(self, timeout_s: float = 30.0) -> int:
+        """Park every live slot-loop conversation into the session store
+        (none without FLAGS_session_store); returns the sessions parked."""
+        if self._session_store is None:
+            return 0
+        return sum(rt._loop.park_sessions(timeout=timeout_s)
+                   for rt in self._models.values()
+                   if getattr(rt, "_loop", None) is not None)
+
+    @property
+    def session_store(self):
+        """The server's session store (None without
+        FLAGS_session_store)."""
+        return self._session_store
+
     def __enter__(self):
         if not self._started:
             self.start()
@@ -711,6 +796,7 @@ class Server:
         if not self._started or self._stopped:
             raise PreconditionNotMetError(
                 "Server is not serving (start() it / already stopped)")
+        self._reject_if_draining()
 
     def _put(self, rt, req, timeout):
         rt.bump(requests=1)
@@ -766,23 +852,34 @@ class Server:
 
     def submit_decode(self, model: str, prompts,
                       max_new_tokens: Optional[int] = None,
-                      timeout: Optional[float] = 5.0) -> Future:
+                      timeout: Optional[float] = 5.0,
+                      session_id: Optional[str] = None) -> Future:
         """Enqueue one decode request: ``prompts`` is a list of 1-D int
         token arrays (variable lengths — they left-pad to the prompt
         bucket at execution).  Resolves to ``[ids]`` where ids is an
         int32 array [len(prompts), max_new_tokens] of generated tokens.
         Blocks up to ``timeout`` under backpressure, then raises
-        UnavailableError."""
+        UnavailableError.
+
+        ``session_id`` (FLAGS_session_store) names the conversation:
+        single-prompt requests only, with ``prompts[0]`` the FULL
+        transcript so far (history + new turn); the slot loop restores
+        the parked KV columns and prefills only the rest."""
         self._serving()
         rt = self._runtime(model)
         if rt.kind != "decode":
             raise InvalidArgumentError(
                 f"model {model!r} is not a decode model: use submit()")
         arrs, max_new = rt.validate(list(prompts), max_new_tokens)
+        if session_id is not None and len(arrs) != 1:
+            raise InvalidArgumentError(
+                f"session_id={session_id!r} requires exactly one prompt "
+                f"(one conversation = one row), got {len(arrs)}")
         rt.ladder.bucket_for(len(arrs))      # raises OutOfRange early
-        return self._put(rt, DecodeRequest(model=model, prompts=arrs,
-                                           rows=len(arrs), max_new=max_new),
-                         timeout)
+        return self._put(rt, DecodeRequest(
+            model=model, prompts=arrs, rows=len(arrs), max_new=max_new,
+            session_id=None if session_id is None else str(session_id)),
+            timeout)
 
     def run_decode(self, model: str, prompts,
                    max_new_tokens: Optional[int] = None,
@@ -790,6 +887,34 @@ class Server:
         """Synchronous convenience: submit_decode + wait."""
         return self.submit_decode(model, prompts, max_new_tokens) \
             .result(timeout=timeout)
+
+    # -- disaggregated serving ----------------------------------------------
+    def _decode_runtime(self, model: str):
+        self._serving()
+        rt = self._runtime(model)
+        if rt.kind != "decode":
+            raise InvalidArgumentError(
+                f"model {model!r} is not a decode model: the KV handoff "
+                "splits a decode")
+        return rt
+
+    def prefill_handoff(self, model: str, prompts,
+                        max_new_tokens: Optional[int] = None):
+        """Run ONLY the prefill and return the KVHandoff (device planes,
+        logits, validity metadata) a decode resumes from; ``.to_bytes()``
+        serializes it."""
+        return self._decode_runtime(model).prefill_handoff(prompts,
+                                                           max_new_tokens)
+
+    def decode_from_handoff(self, model: str, handoff):
+        """Resume generation from a KVHandoff or its serialized bytes;
+        returns int32 ids [rows, max_new], the tokens ``submit_decode``
+        gives the same prompts."""
+        rt = self._decode_runtime(model)
+        if isinstance(handoff, (bytes, bytearray, memoryview)):
+            from .cluster.handoff import deserialize_kv
+            handoff = deserialize_kv(bytes(handoff))
+        return rt.decode_from_handoff(handoff)
 
     # -- observability -------------------------------------------------------
     def compile_events_since_warmup(self) -> List[dict]:
@@ -843,8 +968,15 @@ class Server:
         out.update(tokens=c["tokens"], ttft_p50_ms=ttft["p50_ms"],
                    ttft_p99_ms=ttft["p99_ms"],
                    **({"slot_loop": loop} if loop is not None else {}),
-                   **(rt.spec_stats(loop) or {}))
+                   **(rt.spec_stats(loop) or {}),
+                   **self._session_keys())
         return out
+
+    def _session_keys(self) -> dict:
+        if self._session_store is None:
+            return {}
+        return {"sessions_parked": len(self._session_store),
+                "session_store_bytes": self._session_store.nbytes()}
 
     def signals(self) -> dict:
         """This process's load snapshot: queue depth, average batch
@@ -876,5 +1008,7 @@ class Server:
             for k in ("prefix_cache_blocks", "prefix_cache_bytes"):
                 if any(k in s for s in slot):
                     out[k] = sum(s.get(k, 0) for s in slot)
+        out.update(self._session_keys())
         out["models"] = self.models()
+        out["draining"] = self._draining
         return out

@@ -60,9 +60,13 @@ driver thread owns every device dispatch.  Token-level occupancy
 accounting (an EWMA of generating rows over ``S``, joined/retired
 counters, a TTFT window) feeds ``Server.stats()`` and ``signals()``.
 
-Not ported yet: parked sessions (ROADMAP A4); a session store raises
-``UnimplementedError``.  A ``session_id`` is accepted and ignored, as
-the JAX loop ignores it without a session store.
+Parked sessions (serving/sessions.py): with a session store, a row that
+carries a ``session_id`` parks its transcript and KV columns into the
+store when it retires (before its future resolves), and a later turn
+submitted with the snapshot restores those columns into a joining row
+and chunk-prefills only the new tokens; ``park_sessions`` parks every
+live session row mid-generation (a server's graceful drain).  Without a
+store a ``session_id`` is ignored.
 """
 from __future__ import annotations
 
@@ -71,13 +75,14 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
+from ..framework import flags as _flags
 from ..framework.enforce import (InvalidArgumentError, OutOfRangeError,
-                                 UnavailableError, UnimplementedError)
+                                 UnavailableError)
 from ..profiler.metrics import LatencyWindow
 
 __all__ = ["SlotLoop", "SlotRequest"]
@@ -88,13 +93,28 @@ _EMPTY, _PREFILL, _GEN = 0, 1, 2
 @dataclass
 class SlotRequest:
     """One row of slot-loop work: a prompt to continue by ``max_new``
-    tokens.  ``future`` resolves to int32 [max_new] generated ids."""
+    tokens.  ``future`` resolves to int32 [max_new] generated ids.
+
+    The restore fields are filled by ``SlotLoop.submit`` when a session
+    snapshot rides along: ``prompt`` then holds the VIRTUAL prompt (the
+    transcript a full re-prefill would run), ``preseed`` the tokens the
+    parked turn already emitted (they count against ``max_new`` and are
+    replayed into the result), ``planes``/``planes_len`` the host KV
+    tree covering the leading ``planes_len`` transcript tokens, and
+    ``resume_logits``/``resume_cur`` the activation payload of a
+    mid-generation resume (plain / speculative loop)."""
 
     prompt: np.ndarray
     max_new: int
     future: Future = field(default_factory=Future)
     t_submit: float = field(default_factory=time.monotonic)
     session_id: Optional[str] = None
+    preseed: List[int] = field(default_factory=list)
+    planes: Any = None
+    planes_len: int = 0
+    resume_logits: Optional[torch.Tensor] = None
+    resume_cur: Optional[int] = None
+    snapshot: Any = None                # the original (re-parked on drain)
 
 
 class _Slot:
@@ -128,10 +148,6 @@ class SlotLoop:
         if slots < 1:
             raise InvalidArgumentError(
                 f"slot loop needs >= 1 slot, got {slots}")
-        if session_store is not None:
-            raise UnimplementedError(
-                "parked sessions (serving/sessions.py) are not ported yet "
-                "(ROADMAP A4): pass session_store=None")
         self._gen = gen
         self.S = int(slots)
         self.C = int(cache_len)
@@ -146,6 +162,11 @@ class SlotLoop:
         self._step = gen.step_exec(self.S, self.C, eos_token_id)
         self._step.claim(self)
         self._prefix = prefix_cache
+        self._sessions = session_store
+        # the KV storage of the step's planes (part of its key): a
+        # snapshot restores only into the storage it was parked from
+        self._kv_dtype = str(_flags.flag("kv_cache_dtype")).lower()
+        self._park_req = None           # guarded-by: _cond (drain handshake)
         self._cond = threading.Condition()
         self._pending: "deque[SlotRequest]" = deque()       # guarded-by: _cond
         self._slots = [_Slot() for _ in range(self.S)]  # driver-thread-owned
@@ -156,8 +177,8 @@ class SlotLoop:
         self._reset_session()
         self.counters = {"joined": 0, "retired": 0, "steps": 0,
                          "chunks": 0, "session_resets": 0,
-                         "emitted_tokens": 0, "prefix_hit_tokens": 0,
-                         "restore_pushes": 0}
+                         "emitted_tokens": 0, "parked": 0, "restored": 0,
+                         "prefix_hit_tokens": 0, "restore_pushes": 0}
         self._occupancy = 0.0               # EWMA of generating/S
         self._ttft = LatencyWindow(maxlen=512)
         self._accepted = self._proposed = 0   # speculative acceptance
@@ -181,9 +202,78 @@ class SlotLoop:
         n_chunks = -(-int(prompt_len) // self.T)
         return n_chunks * self.T + int(max_new) + self._gamma
 
+    def _min_need(self, req: "SlotRequest") -> int:
+        """Minimum ring columns ``req`` can ever consume (admitted at
+        ``pos = 0``): the plane-restore path needs only the transcript
+        itself (restored columns are exact, never chunk-padded), the
+        plain path the padded chunk span."""
+        budget = req.max_new - len(req.preseed)
+        if req.planes_len >= self.T:
+            return req.prompt.size + budget + self._gamma
+        return self._need(req.prompt.size, budget)
+
+    def _planes_fit(self, planes, n) -> bool:
+        """The snapshot's plane tree has this loop's cache structure, and
+        each plane this loop's dtype, heads and head width over ``n``
+        columns of one row."""
+        def fits(tree, ref):
+            if torch.is_tensor(ref):
+                return (torch.is_tensor(tree) and tree.dtype == ref.dtype
+                        and tuple(tree.shape) == (1, ref.shape[1], n,
+                                                  ref.shape[3]))
+            return (isinstance(tree, (list, tuple)) and len(tree) == len(ref)
+                    and all(fits(a, b) for a, b in zip(tree, ref)))
+        return fits(planes, self._cache)
+
+    def _prepare_restore(self, req: "SlotRequest", snap) -> None:
+        """Fold a session snapshot into the request.  Any mismatch
+        (transcript not a prefix of the prompt, wrong loop flavor, wrong
+        KV storage, missing, sub-chunk or misshapen planes) quietly
+        degrades, first to a plane-less restore, then to a plain submit,
+        which give the tokens of the full re-prefill: a snapshot can make
+        the turn cheaper, never wrong."""
+        p = req.prompt
+        toks = np.asarray(snap.tokens, np.int32)
+        if snap.remaining > 0:
+            # mid-generation park (drain): the client resubmitted the
+            # ORIGINAL request; the transcript extends its prompt by the
+            # tokens already emitted: resume, replaying those
+            if toks.size != p.size + len(snap.emitted) \
+                    or not np.array_equal(toks[:p.size], p):
+                return
+            req.prompt = toks
+            req.preseed = list(snap.emitted)[:req.max_new]
+        else:
+            # completed turn: the follow-up prompt must extend the
+            # transcript (history ++ new turn), leaving a real suffix
+            if toks.size >= p.size \
+                    or not np.array_equal(p[:toks.size], toks):
+                return
+        req.snapshot = snap
+        if (snap.planes is None or toks.size < self.T
+                or bool(snap.spec) != self._spec
+                or snap.kv_dtype != self._kv_dtype
+                or not self._planes_fit(snap.planes, int(toks.size))):
+            return                      # plane-less: plain chunks
+        if snap.remaining > 0:
+            if self._spec and snap.cur is None:
+                return
+            if not self._spec and (snap.logits is None or
+                                   snap.logits.numel()
+                                   != self._step.logits.shape[1]):
+                return
+            req.resume_logits = None if snap.logits is None \
+                else snap.logits.reshape(-1)
+            req.resume_cur = None if snap.cur is None else int(snap.cur)
+        req.planes = snap.planes
+        req.planes_len = int(toks.size)
+
     # -- producer ------------------------------------------------------------
-    def submit(self, prompt, max_new: int,
-               session_id: Optional[str] = None) -> Future:
+    def submit(self, prompt, max_new: int, session_id: Optional[str] = None,
+               snapshot=None) -> Future:
+        """Enqueue a request; with ``snapshot`` (a SessionSnapshot of the
+        same session, taken from the store) the row restores the parked
+        columns instead of prefilling them."""
         p = np.asarray(prompt).reshape(-1).astype(np.int32)
         if p.size == 0:
             raise InvalidArgumentError("empty prompt (0 tokens)")
@@ -191,11 +281,18 @@ class SlotLoop:
         if mn < 1:
             raise InvalidArgumentError("max_new must be >= 1")
         req = SlotRequest(prompt=p, max_new=mn, session_id=session_id)
-        if self._need(p.size, mn) > self.C:
+        if snapshot is not None:
+            self._prepare_restore(req, snapshot)
+        if len(req.preseed) >= mn:
+            # the parked turn already emitted the whole budget: resolve
+            # without touching a slot (deterministic replay)
+            req.future.set_result(np.asarray(req.preseed[:mn], np.int32))
+            return req.future
+        if self._min_need(req) > self.C:
             raise OutOfRangeError(
                 f"prompt of {p.size} tokens + max_new {mn} can never fit "
-                f"the slot cache (need {self._need(p.size, mn)} columns, "
-                f"C={self.C}, chunk={self.T})")
+                f"the slot cache (need {self._min_need(req)} columns, "
+                f"C={self.C}, chunk={self.T}, gamma={self._gamma})")
         with self._cond:
             if self._closed:
                 raise UnavailableError("slot loop is closed")
@@ -233,6 +330,8 @@ class SlotLoop:
                     while (not self._pending
                            and all(s.state == _EMPTY
                                    for s in self._slots)):
+                        # nothing live to park: ack a drain's handshake
+                        self._ack_park()
                         if self._closed:
                             return
                         self._cond.wait(0.05)
@@ -241,6 +340,9 @@ class SlotLoop:
                             "slot loop closed before this request was "
                             "admitted"))
                         return
+                    park, self._park_req = self._park_req, None
+                    if park is not None:
+                        self._do_park(park)
                     self._admit()
                 self._dispatch_chunks()
                 self._activate()
@@ -251,6 +353,7 @@ class SlotLoop:
         except Exception as e:   # noqa: BLE001 — fail the rows, not the host
             with self._cond:
                 self._dead = e
+                self._ack_park()
                 for s in self._slots:
                     if s.req is not None and not s.req.future.done():
                         s.req.future.set_exception(e)
@@ -277,6 +380,31 @@ class SlotLoop:
         n_chunks = -(-int(prompt_len) // self.T)
         return max(n_chunks * self.T, self.pos + n_chunks)
 
+    def _plan_act_req(self, req: "SlotRequest") -> int:
+        """Planned activation for a request admitted NOW, by mode.  A
+        plane-restore row prefills only its uncached suffix (``n_s``
+        chunks; none for a mid-generation resume), floored at the
+        transcript length so the restored block stays at columns >= 0:
+        restored columns are exact, never chunk-padded."""
+        if req.planes_len >= self.T:
+            return max(req.prompt.size, self.pos + self._suffix_chunks(req))
+        return self._plan_act(req.prompt.size)
+
+    def _suffix_chunks(self, req: "SlotRequest") -> int:
+        """Chunks of a restored row: the tokens past the last whole
+        restored block, in T-wide chunks."""
+        ls = req.prompt.size - (req.planes_len // self.T) * self.T \
+            if req.planes_len < req.prompt.size else 0
+        return -(-ls // self.T)
+
+    @staticmethod
+    def _host_block(planes, lo, hi):
+        """Columns ``[lo, hi)`` of a host plane tree, same structure."""
+        if isinstance(planes, (list, tuple)):
+            kids = [SlotLoop._host_block(p, lo, hi) for p in planes]
+            return kids if isinstance(planes, list) else tuple(kids)
+        return planes[:, :, lo:hi]
+
     def _admit(self):
         """Move pending FIFO heads into empty slots at the current token
         boundary.  Strict FIFO: if the head does not fit the remaining
@@ -286,8 +414,8 @@ class SlotLoop:
             if not self._pending or slot.state != _EMPTY:
                 continue
             head = self._pending[0]
-            if self._plan_act(head.prompt.size) + head.max_new \
-                    + self._gamma > self.C:
+            if self._plan_act_req(head) + head.max_new \
+                    - len(head.preseed) + self._gamma > self.C:
                 if all(s.state == _EMPTY for s in self._slots) \
                         and self.pos > 0:
                     # whole loop idle: restart the ring session (windows
@@ -296,18 +424,57 @@ class SlotLoop:
                     self.counters["session_resets"] += 1
                 else:
                     break                        # drain first
-            self._pending.popleft()
+            # installed before it leaves the queue: a failing install
+            # fails the request with the loop instead of losing it
             self._install(slot, head)
+            self._pending.popleft()
 
     def _install(self, slot: "_Slot", head: "SlotRequest"):
-        """Stage one admitted request into a slot row: look up the prefix
-        cache, queue the restore block pushes, and plan the chunks.  Both
-        paths meet the same activation at ``slot.act`` and give the
-        tokens of the plain full prefill of ``head.prompt``."""
-        p = head.prompt
-        lp = int(p.size)
+        """Stage one admitted request into a slot row: pick the restore
+        source (session planes, else a prefix-cache hit, else none), queue
+        the restore block pushes, and plan the chunks.  All three paths
+        meet the same activation at ``slot.act`` and give the tokens of
+        the plain full prefill of ``head.prompt``."""
         slot.restore = []
         slot.pin = None
+        if head.planes_len >= self.T:
+            self._install_session(slot, head)
+        else:
+            self._install_prefill(slot, head)
+        slot.req = head
+        slot.next_chunk = 0
+        slot.emitted = list(head.preseed)
+        slot.state = _PREFILL
+        self.counters["joined"] += 1
+
+    def _install_session(self, slot: "_Slot", head: "SlotRequest"):
+        """The session-snapshot restore (host planes): whole T-blocks of
+        the parked columns are pushed, the tokens past them re-run as
+        chunks (recomputed K/V equal the parked ones)."""
+        p, lp, lc = head.prompt, int(head.prompt.size), head.planes_len
+        n_s = self._suffix_chunks(head)
+        slot.act = max(lp, self.pos + n_s)
+        slot.start = slot.act - lp
+        for j in range(lc // self.T):
+            slot.restore.append(
+                (self._host_block(head.planes, j * self.T, (j + 1) * self.T),
+                 slot.start + j * self.T))
+        if lc % self.T and lc == lp:
+            # mid-generation resume: no suffix chunk recomputes the
+            # partial tail block, so restore it as a T-wide overlap slice
+            # ending exactly at the transcript's edge
+            slot.restore.append(
+                (self._host_block(head.planes, lc - self.T, lc),
+                 slot.start + lc - self.T))
+        suffix = p[lp - n_s * self.T:] if n_s else p[:0]
+        slot.chunks = [suffix[k * self.T:(k + 1) * self.T]
+                       for k in range(n_s)]
+        self.counters["restored"] += 1
+
+    def _install_prefill(self, slot: "_Slot", head: "SlotRequest"):
+        """A prefix-cache hit (device blocks) or the plain full prefill."""
+        p = head.prompt
+        lp = int(p.size)
         blocks, pin = ([], None)
         if self._prefix is not None and lp > self.T:
             # clamp so >= 1 true suffix token remains: the final chunk's
@@ -344,11 +511,6 @@ class SlotLoop:
                            for k in range(n_chunks)]
             slot.act = self._plan_act(lp)
             slot.start = slot.act - lp
-        slot.req = head
-        slot.next_chunk = 0
-        slot.emitted = []
-        slot.state = _PREFILL
-        self.counters["joined"] += 1
 
     # -- chunked prefill -----------------------------------------------------
     def _dispatch_chunks(self):
@@ -409,7 +571,15 @@ class SlotLoop:
             self._start[i] = slot.start
             self._finished[i] = False
             self._active[i] = True
-            if self._spec:
+            if not slot.chunks:
+                # mid-generation resume: no chunk produced the activation
+                # payload; the snapshot carried the values the loop held
+                # for this row when it parked
+                if self._spec:
+                    self._cur[i] = slot.req.resume_cur
+                else:
+                    self._step.set_logits(i, slot.req.resume_logits)
+            elif self._spec:
                 # the first committed token: the target's argmax over the
                 # final chunk's logits
                 self._cur[i] = int(slot._act_logits.argmax())
@@ -436,11 +606,13 @@ class SlotLoop:
         with self._cond:
             self._occupancy = ratio if self.counters["steps"] == 0 \
                 else 0.9 * self._occupancy + 0.1 * ratio
+            # counted before the step retires rows: a caller woken by a
+            # retiring row's future reads this step already counted
+            self.counters["steps"] += 1
         if self._spec:
             self._spec_step(gen_slots)
         else:
             self._plain_step(gen_slots)
-        self.counters["steps"] += 1
 
     def _plain_step(self, gen_slots):
         self._finished, tok = self._step(self._start, self._finished,
@@ -494,20 +666,132 @@ class SlotLoop:
             lambda j: self._gen.pull_block(self._cache, i,
                                            slot_start + j * self.T, self.T))
 
+    def _park(self, i: int, slot: "_Slot", remaining: int):
+        """Snapshot one session row into the store: the row's transcript
+        columns ``[start, start + Lc)`` pulled to the host (relative
+        positions ``[0, Lc)``; every emitted token's K/V is in the cache,
+        the step feeds a token where it emits it), plus the resume
+        payload.  Called at turn retire (``remaining == 0``: the
+        follow-up turn restores instead of re-prefilling) and at a drain
+        (``remaining > 0``)."""
+        from .sessions import SessionSnapshot
+        req = slot.req
+        tokens = req.prompt.tolist() \
+            + [int(t) for t in slot.emitted[len(req.preseed):]]
+        lc = len(tokens)
+        planes = logits = cur = None
+        if lc >= self.T:
+            planes = self._gen.pull_row(self._cache, i, slot.start, lc)
+        if remaining > 0:
+            if self._spec:
+                cur = int(self._cur[i])
+            else:
+                with torch.inference_mode():
+                    logits = self._step.logits[i].to("cpu", copy=True)
+        self._sessions.put(SessionSnapshot(
+            session_id=req.session_id, model=self._model, tokens=tokens,
+            remaining=int(remaining),
+            emitted=[int(t) for t in slot.emitted], planes=planes,
+            logits=logits, cur=cur, kv_dtype=self._kv_dtype,
+            spec=self._spec))
+        self.counters["parked"] += 1
+
+    def _free(self, i):
+        slot = self._slots[i]
+        slot.state, slot.req = _EMPTY, None
+        slot.emitted = []
+        slot.restore = []
+        self._finished[i] = True
+        self._active[i] = False
+        self._cur[i] = 0
+
     def _retire(self, i):
         slot = self._slots[i]
         req = slot.req
         out = np.full((req.max_new,), self._end, np.int32)
         out[:len(slot.emitted)] = slot.emitted
+        if req.session_id is not None and self._sessions is not None:
+            # park BEFORE the future resolves and the slot frees: a new
+            # admission could reuse this row and overwrite the columns
+            # the snapshot needs
+            self._park(i, slot, remaining=0)
         # eos freeze: every position after finish reads eos, exactly the
         # run-to-completion decode's padding
         req.future.set_result(out)
-        slot.state, slot.req = _EMPTY, None
-        slot.emitted = []
-        self._finished[i] = True
-        self._active[i] = False
-        self._cur[i] = 0
+        self._free(i)
         self.counters["retired"] += 1
+
+    # -- drain-time parking --------------------------------------------------
+    def park_sessions(self, timeout: float = 30.0) -> int:
+        """Park every session-tagged row and pending request (a graceful
+        drain's fast path: a conversation leaves as a snapshot in
+        milliseconds instead of decoding to completion).  Generating rows
+        snapshot mid-stream (``remaining > 0``) and their futures fail
+        with a retryable UnavailableError: the turn, submitted again,
+        resumes from the snapshot (or re-prefills) with the same tokens.
+        Rows without a session keep decoding.  Thread-safe; the driver
+        thread does the pulls (it owns every dispatch).  Returns the
+        number of sessions parked."""
+        if self._sessions is None:
+            return 0
+        evt = threading.Event()
+        out = [0]
+        with self._cond:
+            if self._dead is not None or self._thread is None \
+                    or not self._any_live():
+                return 0
+            self._park_req = (evt, out)
+            self._cond.notify_all()
+        evt.wait(timeout)
+        return out[0]
+
+    def _ack_park(self):
+        """Release a waiting ``park_sessions`` (caller holds _cond)."""
+        if self._park_req is not None:
+            self._park_req[0].set()
+            self._park_req = None
+
+    def _do_park(self, park):
+        """Driver-thread half of :meth:`park_sessions` (called with the
+        condition held, between dispatch rounds)."""
+        evt, out = park
+        try:
+            exc = UnavailableError(
+                "session parked for drain; submit the turn again",
+                retry_after_s=0.05)
+            for i, slot in enumerate(self._slots):
+                if slot.req is None or slot.req.session_id is None:
+                    continue
+                if slot.state == _GEN:
+                    self._park(i, slot, remaining=slot.req.max_new
+                               - len(slot.emitted))
+                elif slot.state == _PREFILL:
+                    # nothing committed yet: put the original snapshot
+                    # back (if one rode in); the turn submitted again
+                    # restores or re-prefills from scratch
+                    if slot.req.snapshot is not None:
+                        self._sessions.put(slot.req.snapshot)
+                    if slot.pin is not None:
+                        self._prefix.release(slot.pin)
+                        slot.pin = None
+                out[0] += 1
+                if not slot.req.future.done():
+                    slot.req.future.set_exception(exc)
+                self._free(i)
+            keep: "deque[SlotRequest]" = deque()
+            while self._pending:
+                r = self._pending.popleft()
+                if r.session_id is None:
+                    keep.append(r)
+                    continue
+                if r.snapshot is not None:
+                    self._sessions.put(r.snapshot)
+                if not r.future.done():
+                    r.future.set_exception(exc)
+                out[0] += 1
+            self._pending = keep
+        finally:
+            evt.set()
 
     def reset_stats(self):
         """Zero the loop-local accounting (the runtime calls this right
@@ -533,6 +817,9 @@ class SlotLoop:
                "slots_retired_total": c["retired"],
                "slot_steps_total": c["steps"],
                "slot_pending": pending}
+        if self._sessions is not None:
+            out["sessions_parked"] = len(self._sessions)
+            out["session_store_bytes"] = self._sessions.nbytes()
         if self._prefix is not None:
             out["prefix_cache_blocks"] = len(self._prefix)
             out["prefix_cache_bytes"] = self._prefix.nbytes()

@@ -271,6 +271,21 @@ class Generator:
                 for p, q in zip(c, blk):
                     p[i:i + 1, :, b:b + q.shape[2]].copy_(q)
 
+    @staticmethod
+    def pull_row(cache, rowidx, base=0, length=None):
+        """A host copy of one slot row's columns ``[base, base + length)``
+        (default: the whole ring), every plane, as CPU tensors: a session
+        park's snapshot.  The JAX package pulls the full-width row and
+        slices the window on the host; this slices on the device before
+        the copy, which moves the same bytes.  Always a copy, on the CPU
+        too: the live planes change after it."""
+        i, b = int(rowidx), int(base)
+        with torch.inference_mode():
+            return [type(c)(*(p[i:i + 1, :, b:(p.shape[2] if length is None
+                                               else b + int(length))]
+                              .to("cpu", copy=True) for p in c))
+                    for c in cache]
+
     def init_slot_cache(self, S, C):
         """Zero planes for a fresh slot session (validity windows make
         the values unobservable; zeros match the prefill's fresh cache)."""

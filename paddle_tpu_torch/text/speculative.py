@@ -291,6 +291,12 @@ class SpeculativeGenerator(Generator):
         for c, b in zip(cache, block):
             Generator.push_block(c, b, rowidx, base)
 
+    # a session park pulls the target's and the draft's planes together
+    @staticmethod
+    def pull_row(cache, rowidx, base=0, length=None):
+        return tuple(Generator.pull_row(c, rowidx, base, length)
+                     for c in cache)
+
     def init_slot_cache(self, S, C):
         """Zero (target, draft) planes for a fresh slot session."""
         with torch.inference_mode():

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of ``paddle_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, the package imports
-with JAX made unimportable, and its entry points refuse to run on the
-CPU unless the caller asks for it."""
+``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes`` (the
+card's machine has none of them), the package imports with all three
+made unimportable, and its entry points refuse to run on the CPU unless
+the caller asks for it."""
 import ast
 import os
 import subprocess
@@ -20,7 +21,7 @@ from paddle_tpu_torch.text.models import (BertConfig, BertForPretraining,
                                           GPTConfig, GPTModel)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "paddle_tpu")
+BANNED = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 
 def _port_sources():
@@ -52,7 +53,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 def test_package_imports_with_jax_unimportable():
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'paddle_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
             "    sys.modules[m] = None\n"
             "import paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.text, paddle_tpu_torch.framework.bridge\n"
@@ -70,6 +71,10 @@ def test_package_imports_with_jax_unimportable():
             "paddle_tpu_torch.static, paddle_tpu_torch.profiler.cuda_graph\n"
             "from paddle_tpu_torch.serving import export_for_serving\n"
             "from paddle_tpu_torch.amp import decorate\n"
+            "import paddle_tpu_torch.checkpoint, "
+            "paddle_tpu_torch.serving.sessions, "
+            "paddle_tpu_torch.serving.cluster.handoff\n"
+            "from paddle_tpu_torch.serving import SessionStore, KVHandoff\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -89,6 +94,18 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         Generator(m)
     with pytest.raises(PreconditionNotMetError):
         serving.Server()
+    # the session and handoff entry points are the Server's: on the CPU
+    # only when the caller asks for it
+    srv = serving.Server(device="cpu")
+    srv.register_decode("gpt", m, batch_buckets=(1,), seq_buckets=(8,),
+                        max_new_tokens=2, max_len=16)
+    srv.start()
+    try:
+        h = srv.prefill_handoff("gpt", [np.ones(3, np.int64)])
+        assert h.cache[0][0].device.type == "cpu"
+        assert srv.decode_from_handoff("gpt", h.to_bytes()).shape == (1, 2)
+    finally:
+        srv.stop()
     out = Generator(m, device="cpu", seq_buckets=(8,), max_len=16) \
         .generate(np.ones((1, 3), np.int64), max_new_tokens=2)
     assert out.device.type == "cpu" and out.shape == (1, 2)

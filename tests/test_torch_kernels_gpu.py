@@ -725,6 +725,136 @@ def test_captured_slot_step_reads_activation_logits(cuda):
     _assert_same_state(cap, eager)
 
 
+# -- parked sessions on the captured step's planes (serving/slots.py) --------
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_session_restore_push_then_row_pull_is_exact(cuda, kv):
+    """A session's host planes (130 columns: two whole 64-column blocks
+    and a tail) pushed into a row of the captured step's own planes as the
+    slot loop restores them (whole blocks, then the tail as a 64-wide
+    overlap slice ending at the transcript's edge), a replay over the
+    restored window, then a pull of the row's window: the pull equals the
+    snapshot bit for bit, and the replay equals the eager step's."""
+    from paddle_tpu_torch.serving.slots import SlotLoop
+    gen, cap, eager = _slot_steps(cuda, kv, 768)
+    T, L, row, base = 64, 130, 5, 300
+    g = torch.Generator().manual_seed(7)
+    snap = []
+    for c in cap.cache:
+        planes = []
+        for p in c:
+            shape = (1, p.shape[1], L, p.shape[3])
+            if p.dtype == torch.int8:
+                planes.append(torch.randint(-127, 128, shape, generator=g,
+                                            dtype=torch.int8))
+            else:
+                planes.append(torch.rand(shape, generator=g).to(p.dtype))
+        snap.append(tuple(planes))
+    bases = [(j * T, base + j * T) for j in range(L // T)] \
+        + [(L - T, base + L - T)]
+    for lo, at in bases:
+        gen.push_block(cap.cache, SlotLoop._host_block(snap, lo, lo + T),
+                       row, at)
+    got = gen.pull_row(cap.cache, row, base, L)
+    for c, sc in zip(got, snap):
+        for p, q in zip(c, sc):
+            assert p.device.type == "cpu" and torch.equal(p, q)
+    eager.load_state(cap)
+    active = np.zeros(8, bool)
+    active[row] = True
+    start = np.full(8, base, np.int32)
+    fin = np.zeros(8, bool)
+    _, tok_c = cap(start, fin, active, base + L)
+    _, tok_e = eager(start, fin, active, base + L)
+    np.testing.assert_array_equal(tok_c, tok_e)
+    _assert_same_state(cap, eager)
+    again = gen.pull_row(cap.cache, row, base, L)
+    assert all(torch.equal(p, q) for c, sc in zip(again, snap)
+               for p, q in zip(c, sc))
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_mid_generation_resume_writes_the_graph_inputs(cuda, spec):
+    """A session row parked mid-generation and resumed: the resumed row's
+    activation writes the snapshot's logits into the captured graph's
+    own logits buffer (plain loop) or its next token into the step's
+    packed input (speculative loop), so the first token after the
+    replayed preseed is that logits' argmax (that token); the preseed
+    replays exactly."""
+    import threading
+    from paddle_tpu_torch.framework.flags import flags_restore, \
+        flags_snapshot, set_flags
+    from paddle_tpu_torch.serving.sessions import SessionStore
+    from paddle_tpu_torch.serving.slots import SlotLoop
+    from paddle_tpu_torch.text.generation import Generator
+    from paddle_tpu_torch.text.speculative import SpeculativeGenerator
+    snap = flags_snapshot()
+    try:
+        set_flags({"FLAGS_kv_cache_dtype": "bf16"})
+        if spec:
+            target, draft = _spec_pair(cuda)
+            gen = SpeculativeGenerator(target, draft, gamma=4,
+                                       seq_buckets=(256,), max_len=256)
+        else:
+            gen = Generator(_slot_model(cuda), seq_buckets=(256,),
+                            max_len=256)
+        store = SessionStore()
+        loop = SlotLoop(gen, 2, 256, 64, session_store=store)
+    finally:
+        flags_restore(snap)
+    assert loop._step.captured
+    step, reached = loop._decode_step, threading.Event()
+
+    def held_step():
+        step()
+        if loop.counters["steps"] == 3:
+            reached.set()
+            while loop._park_req is None:
+                threading.Event().wait(0.001)
+
+    seen = {}
+    activate = loop._activate
+
+    def recording_activate():
+        activate()
+        i = 0
+        if loop._slots[i].state == 2 and "row" not in seen:
+            seen["row"] = loop._step.logits[i].clone() if not spec \
+                else int(loop._cur[i])
+
+    def recording_step():
+        # the first replay after the activation: the packed input it read
+        fresh = "row" in seen and "inp" not in seen
+        step()
+        if fresh:
+            seen["inp"] = int(loop._step._inp_host[3 * loop.S])
+
+    prompt = np.random.RandomState(0).randint(1, 512, 70)
+    loop._decode_step = held_step
+    try:
+        fut = loop.submit(prompt, 40, session_id="s")
+        assert reached.wait(120)
+        assert loop.park_sessions(timeout=60) == 1
+        with pytest.raises(Exception, match="parked"):
+            fut.result(timeout=60)
+        parked = store.take("s")
+        n = len(parked.emitted)
+        assert parked.remaining == 40 - n and n >= 3
+        loop._decode_step = recording_step
+        loop._activate = recording_activate
+        got = loop.submit(prompt, 40, session_id="s",
+                          snapshot=parked).result(timeout=120)
+        assert loop.counters["restored"] == 1
+        assert list(got[:n]) == parked.emitted
+        if spec:
+            assert seen["row"] == seen["inp"] == parked.cur == got[n]
+        else:
+            assert torch.equal(seen["row"].cpu(), parked.logits)
+            assert int(parked.logits.argmax()) == int(got[n])
+    finally:
+        loop.close()
+
+
 # -- the verify block: B3/B4's query-block form -------------------------------
 
 @pytest.mark.parametrize("S", [256, 768])

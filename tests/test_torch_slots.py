@@ -6,8 +6,9 @@ the port's batch-1 ``generate()`` emits, with no step built after
 warm-up; plus the int8-KV variant, the speculative loop (f32 and int8)
 against the JAX speculative SlotLoop and generate(), eos retirement,
 bounded-ring resets, the occupancy accounting, the constructor guards
-(a speculative loop builds), the FLAGS surface, the
-slot-mode Server against the JAX one, the off path, and the tensor
+(a speculative loop builds, a session store takes a parked turn), the
+FLAGS surface, the slot-mode Server against the JAX one, the off path,
+and the tensor
 ``cache_position`` of ``forward_cached`` against its int path, bit for
 bit.  The trace and the wave submission follow
 ``tests/test_slot_decode.py``.
@@ -31,10 +32,10 @@ from paddle_tpu_torch import serving
 from paddle_tpu_torch.framework import flags as _flags
 from paddle_tpu_torch.framework.enforce import (InvalidArgumentError,
                                                 OutOfRangeError,
-                                                PreconditionNotMetError,
-                                                UnimplementedError)
+                                                PreconditionNotMetError)
 from paddle_tpu_torch.framework.flags import (flags_restore, flags_snapshot,
                                               set_flags)
+from paddle_tpu_torch.serving.sessions import SessionStore
 from paddle_tpu_torch.serving.slots import SlotLoop
 from paddle_tpu_torch.text.generation import Generator
 from paddle_tpu_torch.text.speculative import SpeculativeGenerator
@@ -245,9 +246,28 @@ def test_slot_loop_constructor_guards(pair):
     gen = _gen(pm)
     with pytest.raises(InvalidArgumentError):
         SlotLoop(gen, slots=0, cache_len=64, chunk=8)
-    with pytest.raises(UnimplementedError, match="A4"):
-        SlotLoop(gen, slots=2, cache_len=64, chunk=8,
-                 session_store=object())
+    # a session store is accepted, and a turn with a session id parks
+    # its transcript and KV columns into it
+    store = SessionStore()
+    parking = SlotLoop(gen, slots=2, cache_len=64, chunk=8,
+                       session_store=store)
+    try:
+        prompt = list(range(1, 11))
+        got = parking.submit(prompt, 3, session_id="conv-1") \
+            .result(timeout=60)
+        np.testing.assert_array_equal(got, _generate(_gen(pm), prompt, 3))
+        snap = store.take("conv-1")
+        assert snap.tokens == prompt + [int(t) for t in got]
+        assert snap.remaining == 0 and snap.planes[0].k.shape == (
+            1, 2, 13, 16)
+        assert parking.counters["parked"] == 1
+        # the snapshot is a copy: serving on over its row changes nothing
+        kept = [p.clone() for c in snap.planes for p in c]
+        parking.submit(list(range(20, 40)), 5).result(timeout=60)
+        assert all(torch.equal(p, q) for p, q in
+                   zip(kept, [p for c in snap.planes for p in c]))
+    finally:
+        parking.close()
 
     # a speculative generator builds its loop (the speculative step)
     spec = SlotLoop(SpeculativeGenerator(pm, pm, device="cpu", gamma=2,

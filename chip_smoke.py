@@ -124,13 +124,15 @@ without printing a result:
               last logits within 1e-4;
   8. fa_kernels  the flash-attention kernels (forward B1, backward B2:
               dQ and dK/dV) against their plain versions in f32 and bf16
-              over head_dims 64/128/256, lengths 128, 200, 256 and
-              128 x 384, causal, and the three bias shapes; then at
-              BERT-base (B=64, N=12, S=128, H=64) on the strided views
-              the model passes, with and without the padding bias:
-              checked in f32 and bf16 (in bf16 also twice: the same
-              bits), and timed in bf16 beside the bound, the plain
-              versions and SDPA;
+              over head_dims 64/128/256, lengths 128, 200, 256, 64 and
+              128 x 384, cross-attention 96 x 40 and 40 x 96 (not
+              causal), causal, the three bias shapes and the square
+              -1e30 target mask; then at BERT-base (B=64, N=12, S=128,
+              H=64) on the strided views the model passes, with and
+              without the padding bias, and at Transformer-big (B=64,
+              N=16, S=64, H=64, no mask): checked in f32 and bf16 (in
+              bf16 also twice: the same bits), and timed in bf16 beside
+              the bound, the plain versions and SDPA;
   8b. dense   BERT-base (BertConfig.base(), random weights from --seed)
               cast to bf16 by amp.decorate(level="O2") behind bench.py's
               bf16 serving wrapper, served through the dense path:
@@ -162,6 +164,20 @@ without printing a result:
               and off) and train_profile (one step under torch.profiler:
               the bf16 step runs the tensor-core kernels, and their share
               of the device-busy time);
+  9b. seq2seq  Transformer-big at bench.py's configuration (vocab 32768,
+              d_model 1024, 16 heads, 6 + 6 layers, ffn 4096, random
+              weights from --seed, f32 masters, bf16 compute, Adam 1e-4)
+              at batch 64 x seq 64: 3 + 10 steps on bench.py's seeded
+              batch, tok/s, loss per step (finite, descending), launches
+              of each flash-attention kernel = 18 a step (encoder self,
+              decoder self, cross), peak memory; seq2seq_profile (one
+              traced step: busy against host time, idle share, launches,
+              the tensor-core kernels' share); seq2seq_parity (depth
+              2 + 2, f32, batch 8, kernels on against off under a source
+              padding mask and the square target mask: the loss and every
+              gradient, then two Adam steps with ClipGradByGlobalNorm(1.0),
+              NoamDecay and label-smoothed soft labels: the losses and
+              parameters);
  10. batch_probe  one short prompt decoded alone and in an 8-row batch,
               module by module: no row may diverge;
  11. fused_kernels  B5 stats/apply, B6 reduce/dx and B7 against their
@@ -250,10 +266,10 @@ SHORT_WAVES = ((4, 16), (17, 32))
 SHORT_REQUESTS = 8
 
 
-def log(phase, **kw):
+def log(tag, **kw):
     """One line of a phase's results, with the seconds since start."""
     kw["t_s"] = round(time.perf_counter() - _T0, 1)
-    print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
+    print(f"[{tag}] " + json.dumps(kw, default=str), flush=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -261,11 +277,15 @@ class SmokeFailure(RuntimeError):
 
 
 _PHASE = "start"        # the phase running, named when one fails
+_PHASE_S = {}           # seconds spent in each phase, logged at the end
+_PHASE_T = _T0
 
 
 def _at(phase):
-    global _PHASE
-    _PHASE = phase
+    global _PHASE, _PHASE_T
+    now = time.perf_counter()
+    _PHASE_S[_PHASE] = round(_PHASE_S.get(_PHASE, 0.0) + now - _PHASE_T, 1)
+    _PHASE, _PHASE_T = phase, now
 
 
 def check(ok, msg):
@@ -950,14 +970,14 @@ def phase_profile(torch, model, seed):
     step_ms, _ = decode_ms(False)
     # the cost of the batch-invariant GEMMs: the same loop with the
     # serving path's GEMMs as plain F.linear calls (the layout before
-    # them), in turns (invariant, plain, plain, invariant) three times;
-    # the host clock of a shared host is noisy, so the minimum of each
-    # is compared
+    # them), in turns (invariant, plain, plain, invariant) twice; the
+    # host clock of a shared host is noisy, so the minimum of each is
+    # compared
     invariant, plain = [step_ms], []
-    for i in range(3):
+    for i in range(2):
         with _plain_serving_gemms():
             plain += [decode_ms(False)[0] for _ in range(2)]
-        invariant += [decode_ms(False)[0] for _ in range(2 if i < 2 else 1)]
+        invariant += [decode_ms(False)[0] for _ in range(2 if i < 1 else 1)]
     n0 = fd.flash_decode.launches
     traced_ms, prof = decode_ms(True)
     fd_launches = fd.flash_decode.launches - n0
@@ -2580,7 +2600,10 @@ def phase_e2e(torch, seed):
 # (B, N, Sq, Sk, H, causal, bias): H 64/128/256; S 128, 256 and 200 (off
 # the 64-row tile); causal with Sq = Sk and with Sq = 128 < Sk = 384; the
 # three bias shapes "b11s" (B, 1, 1, Sk), "11ss" (1, 1, Sq, Sk) and
-# "bnss" (B, N, Sq, Sk)
+# "bnss" (B, N, Sq, Sk); then the Transformer's shapes: S = 64 (below
+# the 128-row tile), cross-attention with Sq != Sk either way round,
+# not causal, under a source-padding bias, and "square" (1, 1, Sq, Sk),
+# generate_square_subsequent_mask's 0 / -1e30
 FA_CHECKS = (
     (2, 4, 128, 128, 64, False, None),
     (2, 4, 256, 256, 128, False, "b11s"),
@@ -2590,6 +2613,10 @@ FA_CHECKS = (
     (2, 4, 128, 384, 64, True, "b11s"),
     (2, 4, 256, 256, 256, True, "bnss"),
     (2, 4, 128, 384, 128, False, "11ss"),
+    (2, 4, 64, 64, 64, False, None),
+    (2, 4, 96, 40, 64, False, "b11s"),
+    (2, 4, 40, 96, 64, False, None),
+    (2, 4, 64, 64, 64, False, "square"),
 )
 # kernel against its plain version on the same inputs, per output, as a
 # share of max(1, the output's largest |value|):
@@ -2603,6 +2630,10 @@ FA_CHECKS = (
 FA_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 # the BERT-base training shape
 FA_TIME = dict(B=64, N=12, S=128, H=64)
+# the Transformer-big training shape (bench.py:300-303): every one of its
+# 18 attentions a step (6 encoder self, 6 decoder self, 6 cross) is
+# B = 64, N = 16, Sq = Sk = 64, H = 64, without a mask
+FA_SEQ2SEQ = dict(B=64, N=16, S=64, H=64)
 FA_ROTATE = 4           # input sets rotated through when timing (> L2)
 
 
@@ -2612,7 +2643,8 @@ def _fa_inputs(torch, g, B, N, Sq, Sk, H, bias, dtype, layout="bnsh"):
     does: ``x.view(B, S, N, H).transpose(1, 2)`` of a (B, S, N*H)
     projection, strided views the wrappers pass to the kernels uncopied.
     ``bias`` "pad" is BERT's padding mask: (B, 1, 1, Sk), 0 over each
-    row's first 64..Sk keys and -1e4 after."""
+    row's first 64..Sk keys and -1e4 after; "square" is the
+    Transformer's causal target mask (1, 1, Sq, Sk) of 0 and -1e30."""
     def mk(S):
         if layout == "bnsh":
             return torch.randn(B, N, S, H, generator=g, device="cuda") \
@@ -2626,6 +2658,10 @@ def _fa_inputs(torch, g, B, N, Sq, Sk, H, bias, dtype, layout="bnsh"):
         return q, k, v, do, torch.where(
             torch.arange(Sk, device="cuda")[None] < lens[:, None], 0.0,
             -1e4)[:, None, None, :]
+    if bias == "square":
+        keep = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda").tril()
+        return q, k, v, do, torch.zeros(1, 1, Sq, Sk, device="cuda") \
+            .masked_fill_(~keep, -1e30)
     shape = {None: None, "b11s": (B, 1, 1, Sk), "11ss": (1, 1, Sq, Sk),
              "bnss": (B, N, Sq, Sk)}[bias]
     b = None
@@ -2719,11 +2755,100 @@ def _fa_repeat(torch, fa, inputs, where):
               "launches on one input")
 
 
+def _fa_model_checks(torch, fa, g, shape, bias, worst):
+    """The three kernels at a model's training shape, on the strided
+    views the model passes: against their plain versions in f32 and
+    bf16, and twice on one bf16 input (the same bits)."""
+    B, N, S, H = (shape[x] for x in "BNSH")
+    where = f"B={B} N={N} S={S} H={H} bias={bias} layout=bsnh"
+    for dt in (torch.float32, torch.bfloat16):
+        inputs = _fa_inputs(torch, g, B, N, S, S, H, bias, dt, "bsnh")
+        check(not inputs[0].is_contiguous() and all(
+            fa._strided(t, dt, "") is t for t in inputs[:4]),
+            f"{where}: the inputs are not the model's strided views "
+            "or the wrapper would copy them")
+        _fa_compare(torch, fa, inputs, False, where, worst)
+        if dt == torch.bfloat16:
+            _fa_repeat(torch, fa, inputs, f"{where} bfloat16")
+        del inputs
+    log("fa_kernels", check=where, dtypes="float32,bfloat16",
+        uncopied_views=True, bf16_repeats_bit_for_bit=True, ok=True)
+
+
+def _fa_timing(torch, fa, g, shape, bias):
+    """Device ms of a call of each kernel at a model's training shape in
+    bf16 (the model's strided views, FA_ROTATE input sets rotated: > 50
+    MB of L2 between reuses), beside its plain version, its bound, and
+    SDPA with the same mask: its forward, and the backward of that one
+    call, which computes dQ, dK and dV together."""
+    import torch.nn.functional as F
+    B, N, S, H = (shape[x] for x in "BNSH")
+    sets = []
+    for _ in range(FA_ROTATE):
+        q, k, v, do, b = _fa_inputs(torch, g, B, N, S, S, H, bias,
+                                    torch.bfloat16, "bsnh")
+        o, lse = fa.flash_fwd_reference(q, k, v, b)
+        sets.append((q, k, v, do, b, lse, fa.flash_dd(o, do)))
+    n = len(sets)
+    kern = {
+        "fwd": lambda i: fa.flash_fwd(*sets[i % n][:3], sets[i % n][4]),
+        "dq": lambda i: fa.flash_bwd_dq(
+            *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+            sets[i % n][3], sets[i % n][6]),
+        "dkv": lambda i: fa.flash_bwd_dkv(
+            *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+            sets[i % n][3], sets[i % n][6]),
+    }
+    plain = {
+        "fwd": lambda i: fa.flash_fwd_reference(*sets[i % n][:3],
+                                                sets[i % n][4]),
+        "dq": lambda i: fa._bwd_plain(
+            *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+            sets[i % n][3], sets[i % n][6], False, None, "q"),
+        "dkv": lambda i: fa._bwd_plain(
+            *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
+            sets[i % n][3], sets[i % n][6], False, None, "kv"),
+    }
+    t = {}
+    bias_bytes = 0 if sets[0][4] is None else sets[0][4].numel() * 4
+    for key in ("fwd", "dq", "dkv"):
+        t[key] = _graph_ms(torch, kern[key], 2 * n)
+        t[key + "_plain"] = _graph_ms(torch, plain[key], 2 * n)
+        bound, by, nbytes, ops = _fa_bound(key, B, N, S, S, H, 2,
+                                           bias_bytes)
+        t.update({key + "_bound": bound, key + "_bound_by": by,
+                  key + "_bytes": nbytes, key + "_ops": ops})
+    mask = [None if x[4] is None else x[4].to(torch.bfloat16)
+            for x in sets]
+    t["sdpa_fwd"] = _graph_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            *sets[i % n][:3], attn_mask=mask[i % n]), 2 * n)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [[x.detach().requires_grad_() for x in st[:3]]
+                  for st in sets]
+        outs = [F.scaled_dot_product_attention(*lv, attn_mask=m)
+                for lv, m in zip(leaves, mask)]
+    t["sdpa_bwd"] = _graph_ms(torch, lambda i: torch.autograd.grad(
+        outs[i % n], leaves[i % n], sets[i % n][3], retain_graph=True),
+        2 * n, stream=stream)
+    t["sdpa_fwd_bwd"] = _graph_ms(torch, lambda i: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves[i % n],
+                                       attn_mask=mask[i % n]),
+        leaves[i % n], sets[i % n][3]), 2 * n)
+    log("fa_kernels", timing=f"B={B} N={N} S={S} H={H} bf16, "
+        f"{'padding bias (B,1,1,S)' if bias else 'no bias'}, "
+        f"model layout, {n} input sets rotated", ms=t)
+    return t
+
+
 def phase_fa_kernels(torch, seed):
     """B1, B2-dQ and B2-dK/dV against their plain versions over
-    FA_CHECKS in f32 and bf16, then at the BERT-base training shape in
-    the model's layout: checked in f32 and bf16, and timed in bf16."""
-    import torch.nn.functional as F
+    FA_CHECKS in f32 and bf16, then at the BERT-base and Transformer-big
+    training shapes in the models' layout: checked in f32 and bf16, and
+    timed in bf16.  Returns (the worst errors, BERT's timings with its
+    padding bias, {"worst", "t"} at the Transformer-big shape)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -2734,94 +2859,23 @@ def phase_fa_kernels(torch, seed):
             _fa_compare(torch, fa, _fa_inputs(torch, g, B, N, Sq, Sk, H,
                                               bias, dt), causal, where, worst)
         log("fa_kernels", check=where, dtypes="float32,bfloat16", ok=True)
-
-    # the BERT-base training shape, as the model gives it to the kernels:
     # q, k, v and dO are transposed views of (B, S, N*H) projections,
-    # read by the kernels through their strides, non-causal, with and
-    # without the padding bias.  Checked in f32 and bf16, then timed in
-    # bf16, rotating over FA_ROTATE input sets (> 50 MB of L2 between
-    # reuses)
-    B, N, S, H = (FA_TIME[x] for x in "BNSH")
+    # read by the kernels through their strides, non-causal; BERT with
+    # and without its padding bias, the Transformer without a mask
     timings = {}
     for padded in (False, True):
         bias = "pad" if padded else None
-        where = f"B={B} N={N} S={S} H={H} bias={bias} layout=bsnh"
-        for dt in (torch.float32, torch.bfloat16):
-            inputs = _fa_inputs(torch, g, B, N, S, S, H, bias, dt, "bsnh")
-            check(not inputs[0].is_contiguous() and all(
-                fa._strided(t, dt, "") is t for t in inputs[:4]),
-                f"{where}: the inputs are not the model's strided views "
-                "or the wrapper would copy them")
-            _fa_compare(torch, fa, inputs, False, where, worst)
-            if dt == torch.bfloat16:
-                _fa_repeat(torch, fa, inputs, f"{where} bfloat16")
-            del inputs
-        log("fa_kernels", check=where, dtypes="float32,bfloat16",
-            uncopied_views=True, bf16_repeats_bit_for_bit=True, ok=True)
-        sets = []
-        for _ in range(FA_ROTATE):
-            q, k, v, do, b = _fa_inputs(torch, g, B, N, S, S, H, bias,
-                                        torch.bfloat16, "bsnh")
-            o, lse = fa.flash_fwd_reference(q, k, v, b)
-            sets.append((q, k, v, do, b, lse, fa.flash_dd(o, do)))
-        n = len(sets)
-        kern = {
-            "fwd": lambda i: fa.flash_fwd(*sets[i % n][:3], sets[i % n][4]),
-            "dq": lambda i: fa.flash_bwd_dq(
-                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
-                sets[i % n][3], sets[i % n][6]),
-            "dkv": lambda i: fa.flash_bwd_dkv(
-                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
-                sets[i % n][3], sets[i % n][6]),
-        }
-        plain = {
-            "fwd": lambda i: fa.flash_fwd_reference(*sets[i % n][:3],
-                                                    sets[i % n][4]),
-            "dq": lambda i: fa._bwd_plain(
-                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
-                sets[i % n][3], sets[i % n][6], False, None, "q"),
-            "dkv": lambda i: fa._bwd_plain(
-                *sets[i % n][:3], sets[i % n][4], sets[i % n][5],
-                sets[i % n][3], sets[i % n][6], False, None, "kv"),
-        }
-        t = {}
-        for key in ("fwd", "dq", "dkv"):
-            t[key] = _graph_ms(torch, kern[key], 2 * n)
-            t[key + "_plain"] = _graph_ms(torch, plain[key], 2 * n)
-            bias_bytes = 0 if sets[0][4] is None else sets[0][4].numel() * 4
-            bound, by, nbytes, ops = _fa_bound(key, B, N, S, S, H, 2,
-                                               bias_bytes)
-            t.update({key + "_bound": bound, key + "_bound_by": by,
-                      key + "_bytes": nbytes, key + "_ops": ops})
-        # the library yardstick (never called by the port): SDPA with the
-        # same additive mask, forward; and the backward of that one call,
-        # which computes dQ, dK and dV together
-        mask = [None if x[4] is None else x[4].to(torch.bfloat16)
-                for x in sets]
-        t["sdpa_fwd"] = _graph_ms(
-            torch, lambda i: F.scaled_dot_product_attention(
-                *sets[i % n][:3], attn_mask=mask[i % n]), 2 * n)
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            leaves = [[x.detach().requires_grad_() for x in st[:3]]
-                      for st in sets]
-            outs = [F.scaled_dot_product_attention(*lv, attn_mask=m)
-                    for lv, m in zip(leaves, mask)]
-        t["sdpa_bwd"] = _graph_ms(torch, lambda i: torch.autograd.grad(
-            outs[i % n], leaves[i % n], sets[i % n][3], retain_graph=True),
-            2 * n, stream=stream)
-        t["sdpa_fwd_bwd"] = _graph_ms(torch, lambda i: torch.autograd.grad(
-            F.scaled_dot_product_attention(*leaves[i % n],
-                                           attn_mask=mask[i % n]),
-            leaves[i % n], sets[i % n][3]), 2 * n)
-        log("fa_kernels", timing=f"B={B} N={N} S={S} H={H} bf16, "
-            f"{'padding bias (B,1,1,S)' if padded else 'no bias'}, "
-            f"model layout, {n} input sets rotated", ms=t)
-        timings[padded] = t
-        del sets, leaves, outs
-    log("fa_kernels", max_abs_err=worst, rtol=FA_RTOL)
-    return worst, timings[True]
+        _fa_model_checks(torch, fa, g, FA_TIME, bias, worst)
+        timings[padded] = _fa_timing(torch, fa, g, FA_TIME, bias)
+    s2s_worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    _fa_model_checks(torch, fa, g, FA_SEQ2SEQ, None, s2s_worst)
+    s2s = {"worst": s2s_worst,
+           "t": _fa_timing(torch, fa, g, FA_SEQ2SEQ, None)}
+    for k, e in s2s_worst.items():
+        worst[k] = max(worst[k], e)
+    log("fa_kernels", max_abs_err=worst, seq2seq_max_abs_err=s2s_worst,
+        rtol=FA_RTOL)
+    return worst, timings[True], s2s
 
 
 # -- phase 8b: dense serving of BERT-base (B1 in an exported program) ------
@@ -3354,7 +3408,7 @@ def phase_train_parity(torch, seed):
         key_bias_atol=PARITY_KEY_BIAS_ATOL)
 
 
-def phase_train_profile(torch, step, batch):
+def phase_train_profile(torch, step, batch, phase="train_profile"):
     """Three bf16 training steps timed, then one traced with
     torch.profiler: device busy time, kernel time by name."""
     from torch.autograd import DeviceType
@@ -3405,7 +3459,326 @@ def phase_train_profile(torch, step, batch):
             top_kernels=[{"name": e.key[:90], "calls": e.count,
                           "ms": round(e.self_device_time_total / 1e3, 4)}
                          for e in top])
-    log("train_profile", **out)
+    log(phase, **out)
+
+
+# -- phase 9b: Transformer-big training (bench.py:265-327) -----------------
+
+# bench.py's on-chip configuration of bench_transformer_big: the fluid
+# Transformer-big widths, vocab 32768, a 64-row position table, batch 64
+# x seq 64, Adam(1e-4), bf16 compute over f32 masters
+SEQ2SEQ = dict(vocab=32768, d_model=1024, nhead=16, layers=6, ffn=4096,
+               batch=64, seq=64, warmup=3, steps=10, lr=1e-4)
+# kernels on against off in f32 at full width, depth cut to 2 + 2 for
+# time; batch 8 as train_parity's; a source padding of 32..64 tokens a
+# row, the square target mask, label smoothing 0.1 under soft-label
+# cross entropy, global-norm clipping at 1.0, and a Noam schedule whose
+# warm-up of 100 steps puts its first rates (3.1e-5: steps 0 and 1 both
+# read Noam's step 1) near train_parity's 1e-4, so that the BERT limits
+# hold for the same reasons
+SEQ2SEQ_PARITY = dict(layers=2, batch=8, steps=2, warmup_steps=100,
+                      clip_norm=1.0, epsilon=0.1)
+# Beside BERT's absolute limits, which an element of a gradient (RMS
+# ~1e-4 here, ~3e-7 in the first encoder layer's q/k weights) or of two
+# Noam steps (at most ~2 x 3.1e-5) cannot reach, each leaf is held on its
+# own scale, with the kernels-on run's ReLU gates pinned to the plain
+# run's (ReluGates).  The limits and the H100 readings they were set
+# from (sound; and with the kernel path's q scaled by 1 + 1e-4, by
+# 1 + 1e-5, or its output by 1 + 1e-5, which pass BERT's limits):
+#  * a gradient leaf's max|on - off| over its own max|off|, 1e-5: sound
+#    2.3e-6; the three perturbations 1.8e-4, 1.8e-5, 2.4e-5 (the key
+#    biases, whose exact gradient is 0, stay with the absolute limit);
+#  * a leaf's change over the two steps, |change on - change off| over
+#    |change off| in norm, 1e-3: sound 1.1e-4; perturbed 6.4e-3, 5.2e-4,
+#    1.3e-3.  Not element by element: Adam's eps turns a gradient
+#    difference dg near 0 into a move of up to ~dg / eps of a rate, so
+#    the largest element barely tells a sound run from a perturbed one.
+# Unpinned, one gate that rounding flips (a pre-activation within ~1e-7
+# of 0) moves its layer's linear1 gradient by up to 2.1e-2 of its max,
+# kernels on against off as much as f32 against f64; f32 against f64,
+# the median leaf moves by 2.5e-4 under the masks (two gates flipped)
+# and by 1.4e-6 without them (none).  seq2seq_parity_probe.py logs
+# these readings.
+SEQ2SEQ_GRAD_RTOL = 1e-5
+SEQ2SEQ_CHANGE_RTOL = 1e-3
+
+
+def seq2seq_lm(vocab, d_model, nhead, layers, ffn, seq, soft_label=False,
+               device=None):
+    """bench.py:272-293's Seq2SeqLM on the port: token and position
+    embeddings shared by source and target, ``nn.Transformer`` (dropout
+    0), a projection to the vocabulary and the cross entropy inside.
+    Its parameters carry the JAX model's dotted names (``embed``,
+    ``pos``, ``core.encoder.layers.i...``, ``proj``), so
+    ``load_jax_state`` maps them name to name.  ``forward(src, tgt,
+    labels, src_mask=None, tgt_mask=None, memory_mask=None)``; with
+    ``soft_label`` the labels are distributions over the vocabulary."""
+    import torch
+    from paddle_tpu_torch import nn
+
+    class Seq2SeqLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, d_model, device=device)
+            self.pos = nn.Embedding(seq, d_model, device=device)
+            self.core = nn.Transformer(
+                d_model=d_model, nhead=nhead, num_encoder_layers=layers,
+                num_decoder_layers=layers, dim_feedforward=ffn,
+                dropout=0.0, device=device)
+            self.proj = nn.Linear(d_model, vocab, device=device)
+            self.loss = nn.CrossEntropyLoss(soft_label=soft_label)
+
+        def forward(self, src, tgt, labels, src_mask=None, tgt_mask=None,
+                    memory_mask=None):
+            def embed(ids):
+                return self.embed(ids) + self.pos(
+                    torch.arange(ids.shape[1], device=ids.device))
+            h = self.core(embed(src), embed(tgt), src_mask, tgt_mask,
+                          memory_mask)
+            logits = self.proj(h)
+            V = logits.shape[-1]
+            return self.loss(logits.reshape(-1, V),
+                             labels.reshape(-1, V) if soft_label
+                             else labels.reshape(-1))
+
+    return Seq2SeqLM()
+
+
+def _seq2seq(torch, seed, layers, soft_label=False):
+    """The Transformer-big model on the card, its random weights from
+    ``seed``; the count of its parameters."""
+    c = SEQ2SEQ
+    torch.manual_seed(seed)
+    model = seq2seq_lm(c["vocab"], c["d_model"], c["nhead"], layers,
+                       c["ffn"], c["seq"], soft_label=soft_label)
+    return model, sum(p.numel() for p in model.parameters())
+
+
+def _seq2seq_batch(torch, batch, seed):
+    """bench.py:313-316's batch: source, target and label ids drawn in
+    that order from np.random.RandomState(seed)."""
+    c = SEQ2SEQ
+    rng = np.random.RandomState(seed)
+    ids = [rng.randint(0, c["vocab"], (batch, c["seq"])) for _ in range(3)]
+    return tuple(torch.as_tensor(x, dtype=torch.int64, device="cuda")
+                 for x in ids)
+
+
+def phase_seq2seq_train(torch, seed):
+    """Transformer-big at bench.py's configuration: 3 + 10 bf16 steps on
+    the repeated batch, 18 launches of each flash-attention kernel a
+    step."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import TrainStep
+    c = SEQ2SEQ
+    model, n_params = _seq2seq(torch, seed, c["layers"])
+    step = TrainStep(model, Adam(learning_rate=c["lr"]),
+                     compute_dtype=torch.bfloat16)
+    batch = _seq2seq_batch(torch, c["batch"], seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _fa_counts(fa, reset=True)          # the path's run: counts from 0
+    losses = [step(batch) for _ in range(c["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(batch) for _ in range(c["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _fa_counts(fa)
+    losses = [float(x) for x in losses]
+    n = c["warmup"] + c["steps"]
+    per_step = 3 * c["layers"]          # encoder self, decoder self, cross
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not descend: {losses}")
+    check(all(v == per_step * n for v in launches.values()),
+          f"launches {launches}, want {per_step} a step x {n} steps each")
+    out = {"config": "Transformer-big (bench.py:265-327)",
+           "vocab": c["vocab"], "d_model": c["d_model"],
+           "heads": c["nhead"], "layers": f"{c['layers']}+{c['layers']}",
+           "ffn": c["ffn"], "batch": c["batch"], "seq": c["seq"],
+           "parameters": n_params, "compute_dtype": "bfloat16",
+           "optimizer": f"Adam({c['lr']})", "steps": n,
+           "timed_steps": c["steps"],
+           "tok_per_s": round(c["batch"] * c["seq"] * c["steps"] / dt, 1),
+           "ms_per_step": round(dt / c["steps"] * 1e3, 3),
+           "losses": [round(x, 5) for x in losses], "launches": launches,
+           "launches_per_step": per_step,
+           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2)}
+    log("seq2seq_train", **out)
+    return out, step, batch
+
+
+def seq2seq_parity_case(torch, seed):
+    """seq2seq_parity's model (Transformer-big widths at depth 2 + 2,
+    soft labels, on the card), its parameter count and its inputs: the
+    batch, label-smoothed targets, a source padding of S/2..S tokens a
+    row as src_mask and memory_mask, and the square target mask."""
+    from paddle_tpu_torch.nn import functional as F
+    c, pc = SEQ2SEQ, SEQ2SEQ_PARITY
+    model, n_params = _seq2seq(torch, seed + 2, pc["layers"],
+                               soft_label=True)
+    src, tgt, labels = _seq2seq_batch(torch, pc["batch"], seed + 2)
+    S = c["seq"]
+    lens = torch.as_tensor(np.random.RandomState(seed + 3).randint(
+        S // 2, S + 1, pc["batch"]), device="cuda")
+    pad = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None],
+                      0.0, -1e4)[:, None, None, :]
+    soft = F.label_smooth(F.one_hot(labels, c["vocab"]),
+                          epsilon=pc["epsilon"])
+    return model, n_params, (src, tgt, soft, pad,
+                             model.core.generate_square_subsequent_mask(S),
+                             pad)
+
+
+class ReluGates:
+    """Stands in for the ReLU of every feed-forward block of ``model``.
+    While ``record``, it is ReLU and keeps each call's gate (h > 0); after
+    ``replay()`` the calls, in the same order, pass ``h`` through the
+    recorded gates and count the elements whose own gate differs.  The
+    gradient is the gate either way, as ReLU's is."""
+
+    def __init__(self, torch, model):
+        self.torch, self.gates, self.i, self.flipped = torch, [], None, 0
+        self.layers = [m for m in model.modules() if hasattr(m, "linear1")]
+        for m in self.layers:
+            check(m.activation is torch.nn.functional.relu,
+                  f"{type(m).__name__} does not run ReLU")
+            m.activation = self
+
+    def replay(self):
+        self.i = 0
+
+    def __call__(self, h):
+        if self.i is None:
+            self.gates.append(h.detach() > 0)
+            return self.torch.nn.functional.relu(h)
+        gate = self.gates[self.i]
+        self.i += 1
+        self.flipped += int(((h.detach() > 0) != gate).sum())
+        return h * gate
+
+    def restore(self):
+        for m in self.layers:
+            m.activation = self.torch.nn.functional.relu
+
+
+def phase_seq2seq_parity(torch, seed):
+    """Transformer-big widths at depth 2 + 2 in f32, kernels on against
+    off from the same weights and batch, under the source padding and
+    square target masks and label-smoothed soft labels: the loss and
+    every gradient of one forward and backward, then two Adam steps with
+    global-norm clipping and a Noam schedule.  The plain run goes first
+    and the kernels' run takes its ReLU gates, so each leaf can be held
+    on its own scale (SEQ2SEQ_GRAD_RTOL)."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import Adam, lr
+    from paddle_tpu_torch.parallel import TrainStep
+    c, pc = SEQ2SEQ, SEQ2SEQ_PARITY
+    S = c["seq"]
+    model, n_params, inputs = seq2seq_parity_case(torch, seed)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    params = [p for _, p in model.named_parameters()]
+    names = [n for n, _ in model.named_parameters()]
+    runs = {}
+    gates = ReluGates(torch, model)
+    snap = flags.flags_snapshot()
+    try:
+        for on in (False, True):
+            if on:
+                gates.replay()
+            flags.set_flags({"FLAGS_use_pallas_kernels": on})
+            model.load_state_dict(init)
+            before = _fa_counts(fa)
+            loss = model(*inputs)
+            grads = torch.autograd.grad(loss, params)
+            sched = lr.NoamDecay(c["d_model"], pc["warmup_steps"])
+            rates = []
+            step = TrainStep(model, Adam(
+                learning_rate=sched,
+                grad_clip=ClipGradByGlobalNorm(pc["clip_norm"])))
+            losses = []
+            for _ in range(pc["steps"]):
+                rates.append(sched())
+                losses.append(float(step(inputs)))
+                sched.step()
+            after = _fa_counts(fa)
+            runs[on] = (loss.item(), dict(zip(names, grads)), losses,
+                        {n: p.detach().clone()
+                         for n, p in model.named_parameters()},
+                        {k: after[k] - before[k] for k in after})
+    finally:
+        flags.flags_restore(snap)
+        gates.restore()
+    check(gates.i == len(gates.gates),
+          f"seq2seq parity: {gates.i} of {len(gates.gates)} gates replayed")
+    per_run = 3 * pc["layers"] * (1 + pc["steps"])
+    check(all(v == per_run for v in runs[True][4].values())
+          and not any(runs[False][4].values()),
+          f"seq2seq parity launches on {runs[True][4]}, off "
+          f"{runs[False][4]}")
+    on, off = runs[True], runs[False]
+    grad_norm = torch.stack([g.float().square().sum()
+                             for g in off[1].values()]).sum().sqrt().item()
+    loss_err = max([abs(on[0] - off[0])]
+                   + [abs(a - b) for a, b in zip(on[2], off[2])])
+    check(all(np.isfinite([on[0]] + on[2])) and loss_err <= PARITY_LOSS_ATOL,
+          f"seq2seq parity: losses {on[0]}, {on[2]} vs {off[0]}, {off[2]}")
+    gdiff = {n: (on[1][n] - off[1][n]).abs().max().item() for n in names}
+    gworst = max(gdiff, key=gdiff.get)
+    check(gdiff[gworst] <= PARITY_PARAM_ATOL,
+          f"seq2seq parity: gradient of {gworst} differs by "
+          f"{gdiff[gworst]}")
+    grel = {n: gdiff[n] / off[1][n].abs().max().item() for n in names
+            if not n.endswith("k_proj.bias")}
+    grel_worst = max(grel, key=grel.get)
+    check(grel[grel_worst] <= SEQ2SEQ_GRAD_RTOL,
+          f"seq2seq parity: gradient of {grel_worst} differs by "
+          f"{grel[grel_worst]} of its max")
+    pdiff = {n: (on[3][n] - off[3][n]).abs().max().item() for n in names}
+    # on[3][n] - off[3][n] is the difference of the two runs' changes,
+    # since both start from init
+    change = {n: ((on[3][n] - off[3][n]).norm()
+                  / (off[3][n] - init[n]).norm()).item()
+              for n in names if not n.endswith("k_proj.bias")}
+    cworst = max(change, key=change.get)
+    check(change[cworst] <= SEQ2SEQ_CHANGE_RTOL,
+          f"seq2seq parity: {cworst}'s change differs by {change[cworst]} "
+          f"of its norm")
+    key_bias = {n: d for n, d in pdiff.items() if n.endswith("k_proj.bias")}
+    rest = {n: d for n, d in pdiff.items() if n not in key_bias}
+    # see PARITY_KEY_BIAS_ATOL: Adam moves a zero-gradient element by up
+    # to ~lr a step either way
+    kb_atol = 2 * max(rates) * pc["steps"]
+    check(len(key_bias) == 3 * pc["layers"],
+          f"seq2seq parity: key biases found {sorted(key_bias)}")
+    pworst = max(rest, key=rest.get)
+    check(rest[pworst] <= PARITY_PARAM_ATOL,
+          f"seq2seq parity: {pworst} differs by {rest[pworst]}")
+    check(max(key_bias.values()) <= kb_atol,
+          f"seq2seq parity: a key bias differs by {max(key_bias.values())}")
+    out = {"dtype": "float32", "layers": f"{pc['layers']}+{pc['layers']}",
+           "parameters": n_params, "batch": pc["batch"], "seq": S,
+           "masks": "src/memory padding (B,1,1,S) -1e4, square tgt -1e30",
+           "label_smooth": pc["epsilon"], "clip_global_norm": pc["clip_norm"],
+           "grad_global_norm": grad_norm, "noam_rates": rates,
+           "loss_kernels": on[0], "loss_plain": off[0],
+           "step_losses_kernels": on[2], "step_losses_plain": off[2],
+           "loss_max_abs_diff": loss_err, "loss_atol": PARITY_LOSS_ATOL,
+           "grad_max_abs_diff": gdiff[gworst], "grad_worst": gworst,
+           "grad_max_rel_diff": grel[grel_worst],
+           "grad_rel_worst": grel_worst, "grad_rtol": SEQ2SEQ_GRAD_RTOL,
+           "change_rel_norm_diff": change[cworst], "change_worst": cworst,
+           "change_rtol": SEQ2SEQ_CHANGE_RTOL,
+           "gates_pinned": gates.flipped, "gate_calls": len(gates.gates),
+           "param_max_abs_diff": rest[pworst], "param_worst": pworst,
+           "param_atol": PARITY_PARAM_ATOL,
+           "key_bias_max_abs_diff": max(key_bias.values()),
+           "key_bias_atol": kb_atol, "launches_kernels": on[4]}
+    log("seq2seq_parity", **out)
+    return out
 
 
 # -- phase 10: batch invariance probe ----------------------------------------
@@ -4174,7 +4547,7 @@ def main(argv=None):
     _at("kernels")
     worst, timing = phase_kernels(torch, args.seed)
     _at("fa_kernels")
-    fa_worst, fa_timing = phase_fa_kernels(torch, args.seed)
+    fa_worst, fa_timing, fa_s2s = phase_fa_kernels(torch, args.seed)
     _at("dense")
     dense = phase_dense(torch, args.seed, env["nvidia_smi"])
     _at("dense_b1_timing")
@@ -4206,6 +4579,15 @@ def main(argv=None):
     del step, batch
     _at("train_parity")
     phase_train_parity(torch, args.seed)
+    torch.cuda.empty_cache()
+    _at("seq2seq_train")
+    s2s_trained, step, batch = phase_seq2seq_train(torch, args.seed)
+    _at("seq2seq_profile")
+    phase_train_profile(torch, step, batch, "seq2seq_profile")
+    del step, batch
+    torch.cuda.empty_cache()
+    _at("seq2seq_parity")
+    phase_seq2seq_parity(torch, args.seed)
     torch.cuda.empty_cache()
     _at("fused_kernels")
     fused_worst, fused_t = phase_fused_kernels(torch, args.seed)
@@ -4254,6 +4636,19 @@ def main(argv=None):
         "plain_ms": dense_t["plain_ms"], "bound_ms": dense_t["bound_ms"],
         "bound_by": dense_t["bound_by"],
         "library_ms": dense_t["library_ms"]})
+    # the Transformer-big path: launches of seq2seq_train's run (18 a
+    # step), timed at its shape (B=64, N=16, S=64, H=64, bf16, no mask)
+    s2s_t = fa_s2s["t"]
+    fa_kernels += [
+        {"name": f"flash_attention_{k}_seq2seq", "route": "cuda",
+         "source": fa_src,
+         "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": s2s_trained["launches"][f"flash_attention_{k}"],
+         "max_abs_err": fa_s2s["worst"][k], "ms": s2s_t[k],
+         "plain_ms": s2s_t[k + "_plain"], "bound_ms": s2s_t[k + "_bound"],
+         "bound_by": s2s_t[k + "_bound_by"],
+         "library_ms": s2s_t["sdpa_fwd" if k == "fwd" else "sdpa_bwd"]}
+        for k, line in (("fwd", 67), ("dq", 192), ("dkv", 232))]
     src = "paddle_tpu_torch/csrc/flash_decode.cu"
     gen_b8 = spec["generate"]
     kernels = [
@@ -4336,7 +4731,9 @@ def main(argv=None):
          "library_ms": None},
     ] + fa_kernels + _fused_kernel_records(fused_worst, fused_t, resnet,
                                            paths)
-    log("done", seconds=round(time.perf_counter() - t0, 1))
+    _at("done")
+    log("done", seconds=round(time.perf_counter() - t0, 1),
+        phase_seconds=_PHASE_S)
     print(env["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,8 @@ def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
         raise InvalidArgumentError(
             f"load_jax_state: names missing from params {missing}, "
             f"unknown names in params {extra}")
-    linear = {f"{n}.weight" for n, m in module.named_modules()
+    # the module itself may be a Linear: its weight is named "weight"
+    linear = {f"{n}.weight".lstrip(".") for n, m in module.named_modules()
               if isinstance(m, nn.Linear)}
     staged = {}
     for name, dst in own.items():

@@ -1,5 +1,8 @@
 from . import functional  # noqa: F401
+from .clip import (  # noqa: F401
+    ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_)
 from .layer import (  # noqa: F401
     AdaptiveAvgPool2D, BatchNorm2D, Conv2D, CrossEntropyLoss, Dropout,
-    MaxPool2D, MultiHeadAttention, ReLU, TransformerEncoder,
-    TransformerEncoderLayer)
+    Embedding, LayerNorm, Linear, MaxPool2D, MultiHeadAttention, ReLU,
+    Transformer, TransformerDecoder, TransformerDecoderLayer,
+    TransformerEncoder, TransformerEncoderLayer)

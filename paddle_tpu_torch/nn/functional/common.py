@@ -1,16 +1,61 @@
 """Common functionals.
 
-Counterpart of ``paddle_tpu/nn/functional/common.py``, kept to dropout,
-plus the row-invariant linear of the serving path.
+Counterpart of ``paddle_tpu/nn/functional/common.py``, kept to linear,
+embedding, one_hot, label_smooth and dropout, plus the row-invariant
+linear of the serving path.
 """
 from __future__ import annotations
 
 import torch
 
+from ...framework.enforce import UnimplementedError
 from ...framework.random import current_generator
 
 # rows of every GEMM that batch_invariant_linear issues
 ROW_CHUNK = 128
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias`` with Paddle's weight layout [in_features,
+    out_features] (the ``Linear`` layer stores torch's [out, in] and
+    calls ``torch.nn.functional.linear``)."""
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` looked up by the ids ``x``; an id equal to
+    ``padding_idx`` (a negative one counts from the end) looks up zeros
+    and passes no gradient to its row, as JAX's ``_embedding_fn``
+    masks it."""
+    if sparse:
+        raise UnimplementedError(
+            "embedding(sparse=True) is not ported: its gradient would be a "
+            "SelectedRows (ROADMAP A5)")
+    out = torch.nn.functional.embedding(x, weight)
+    if padding_idx is None:
+        return out
+    pi = int(padding_idx)
+    if pi < 0:
+        pi += weight.shape[0]
+    return torch.where((x != pi)[..., None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def one_hot(x, num_classes, name=None):
+    """f32 one-hot rows over a new last axis of ``num_classes``; an id
+    outside [0, num_classes) gives a row of zeros (``jax.nn.one_hot``)."""
+    classes = torch.arange(int(num_classes), device=x.device)
+    return (x[..., None] == classes).to(torch.float32)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """``(1 - epsilon) label + epsilon prior``, the prior uniform over
+    the last axis unless ``prior_dist`` is given."""
+    eps = float(epsilon)
+    if prior_dist is None:
+        return (1 - eps) * label + eps / label.shape[-1]
+    return (1 - eps) * label + eps * prior_dist
 
 
 def dropout(x, p=0.5, training=True, generator=None):

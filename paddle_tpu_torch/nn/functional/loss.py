@@ -1,20 +1,48 @@
 """Loss functionals.
 
-Counterpart of ``paddle_tpu/nn/functional/loss.py``, kept to the hard-
-label cross entropy the training path uses.
+Counterpart of ``paddle_tpu/nn/functional/loss.py``, kept to the softmax
+cross entropy of the training paths, with hard or soft labels.
 """
 from __future__ import annotations
 
 import torch
 
+from ...framework.enforce import UnimplementedError
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
-    """Softmax cross entropy over the last axis with hard labels, in f32
-    (JAX ``_softmax_ce_hard_fn``).  Labels equal to ``ignore_index``
-    contribute 0; ``"mean"`` divides by the number of valid labels, or by
-    1 when there is none, so an all-ignored batch gives 0, not NaN.  A
-    label with a trailing axis of 1 is squeezed."""
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, name=None):
+    """Cross entropy over the last axis, in f32.
+
+    Hard labels (JAX ``_softmax_ce_hard_fn``): labels equal to
+    ``ignore_index`` contribute 0; ``"mean"`` divides by the number of
+    valid labels, or by 1 when there is none, so an all-ignored batch
+    gives 0, not NaN.  A label with a trailing axis of 1 is squeezed.
+
+    Soft labels (``soft_label=True``, JAX ``_softmax_ce_soft_fn``): a
+    distribution over the last axis, e.g. ``label_smooth(one_hot(y))``;
+    the loss of a row is ``-sum(label * log p)``, ``"mean"`` averages
+    over the rows.
+
+    Class weights, another axis and ``use_softmax=False`` are not
+    ported."""
+    if weight is not None or axis not in (-1, input.ndim - 1) \
+            or not use_softmax:
+        raise UnimplementedError(
+            "cross_entropy is ported over the last axis with the softmax "
+            "and without class weights (ROADMAP A9)")
     logp = torch.log_softmax(input.float(), dim=-1)
+    if soft_label:
+        return _reduce(-(label.float() * logp).sum(-1), reduction)
     squeeze = label.ndim == logp.ndim
     if squeeze:
         label = label.squeeze(-1)

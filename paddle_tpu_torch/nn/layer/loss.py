@@ -1,4 +1,4 @@
-"""Loss layers, kept to CrossEntropyLoss with hard labels.
+"""Loss layers, kept to CrossEntropyLoss.
 
 Counterpart of ``paddle_tpu/nn/layer/loss.py``.
 """
@@ -11,21 +11,22 @@ from ...framework.enforce import UnimplementedError
 
 
 class CrossEntropyLoss(nn.Module):
-    """Softmax cross entropy over the last axis with hard labels
-    (``nn.functional.cross_entropy``); soft labels, class weights and
-    another axis are not ported."""
+    """Cross entropy over the last axis with hard or soft labels
+    (``nn.functional.cross_entropy``); class weights, another axis and
+    ``use_softmax=False`` are not ported."""
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True, name=None):
         super().__init__()
-        if weight is not None or soft_label or axis != -1 \
-                or not use_softmax:
+        if weight is not None or axis != -1 or not use_softmax:
             raise UnimplementedError(
-                "CrossEntropyLoss is ported for hard labels over the last "
-                "axis without class weights")
+                "CrossEntropyLoss is ported over the last axis with the "
+                "softmax and without class weights (ROADMAP A9)")
         self.ignore_index = ignore_index
         self.reduction = reduction
+        self.soft_label = bool(soft_label)
 
     def forward(self, input, label):
         return cross_entropy(input, label, ignore_index=self.ignore_index,
-                             reduction=self.reduction)
+                             reduction=self.reduction,
+                             soft_label=self.soft_label)

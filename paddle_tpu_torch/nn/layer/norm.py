@@ -1,17 +1,21 @@
-"""Normalization layers, kept to BatchNorm2D.
+"""Normalization layers, kept to BatchNorm2D and LayerNorm.
 
-Counterpart of ``paddle_tpu/nn/layer/norm.py``.  Parameters ``weight``
-(ones) and ``bias`` (zeros); persistent f32 buffers ``_mean`` (zeros) and
-``_variance`` (ones), updated in place in training with Paddle's
-momentum convention (``nn/functional/norm.py``).  Train mode normalizes
-with the batch statistics, eval mode with the running ones.
+Counterpart of ``paddle_tpu/nn/layer/norm.py``.  BatchNorm2D: parameters
+``weight`` (ones) and ``bias`` (zeros); persistent f32 buffers ``_mean``
+(zeros) and ``_variance`` (ones), updated in place in training with
+Paddle's momentum convention (``nn/functional/norm.py``).  Train mode
+normalizes with the batch statistics, eval mode with the running ones.
+LayerNorm takes Paddle's signature over ``torch.nn.LayerNorm`` and lands
+on CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ...framework.place import DeviceLike, resolve_device
 from .. import functional as F
+from .common import no_param_attrs
 
 
 class BatchNorm2D(nn.Module):
@@ -42,3 +46,16 @@ class BatchNorm2D(nn.Module):
     def extra_repr(self):
         return (f"num_features={self._num_features}, "
                 f"momentum={self._momentum}")
+
+
+class LayerNorm(nn.LayerNorm):
+    """Normalization over the trailing ``normalized_shape`` dims with a
+    ``weight`` (ones) and a ``bias`` (zeros)."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device: DeviceLike = None,
+                 dtype=None):
+        no_param_attrs("LayerNorm", weight_attr=weight_attr,
+                       bias_attr=bias_attr)
+        super().__init__(normalized_shape, eps=epsilon,
+                         device=resolve_device(device), dtype=dtype)

@@ -1,18 +1,25 @@
-"""Transformer layers with the static-shape KV ring cache.
+"""Transformer layers with the incremental and ring KV caches.
 
-Counterpart of ``paddle_tpu/nn/layer/transformer.py`` (MultiHeadAttention
-with its ring-cache decode path, TransformerEncoderLayer and
-TransformerEncoder), written as ``torch.nn.Module``s.  Parameter names
-match the JAX package's dotted paths one to one (``q_proj.weight``,
-``linear1.bias``, ``norm2.weight``...), so the weight bridge maps name
-to name.
+Counterpart of ``paddle_tpu/nn/layer/transformer.py``: MultiHeadAttention
+(with Paddle's incremental ``Cache``, the cross-attention's
+``StaticCache`` and the static-shape ring cache of the decode path),
+TransformerEncoderLayer/Encoder, TransformerDecoderLayer/Decoder and the
+encoder-decoder ``Transformer``, written as ``torch.nn.Module``s.
+Parameter names match the JAX package's dotted paths one to one
+(``q_proj.weight``, ``cross_attn.k_proj.bias``, ``norm3.weight``...),
+so the weight bridge maps name to name.
 
 The cached (serving) forward multiplies in fixed row chunks
 (``pad_rows``, ``rows_linear``, ``batch_invariant_linear`` in
 ``nn/functional/common.py``): a row's projections then do not depend on
 the rows batched with it, so a served row equals its batch-1
 ``generate()`` bit for bit, as the JAX package's rows are across pack
-compositions.  The training forward keeps plain ``nn.Linear`` calls.
+compositions.  The training forward calls the projections as modules.
+
+Every projection and LayerNorm is the port's Paddle-signature ``Linear``
+(Xavier-uniform weight, zero bias) and ``LayerNorm``, so one init rule
+holds for a whole model, and every layer lands on CUDA unless the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -23,11 +30,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...framework.enforce import UnimplementedError
 from ...framework.flags import flag
+from ...framework.place import DeviceLike, module_device, resolve_device
 from ..functional.attention import attention_bnsh, cached_attention
 from ..functional.common import (batch_invariant_linear, dropout, pad_rows,
                                  rows_linear)
-from .common import Dropout
+from .common import Dropout, Linear, no_param_attrs
+from .norm import LayerNorm
 
 
 def ring_block_write(plane, new, pos, axis=None):
@@ -92,6 +102,11 @@ def dequantize_kv_rows(q, scale, dtype=None):
 
 
 class MultiHeadAttention(nn.Module):
+    # Paddle's incremental self-attention cache: the K/V of every token
+    # so far, (B, N, t, H), grown by concatenation a step
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    # the cross-attention's projected memory K/V, used as it is
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
     # static-shape decode cache: (B, N, max_len, H) ring buffers written
     # at an explicit cache_position
     RingCache = collections.namedtuple("RingCache", ["k", "v"])
@@ -100,21 +115,31 @@ class MultiHeadAttention(nn.Module):
     QuantRingCache = collections.namedtuple(
         "QuantRingCache", ["k", "v", "k_scale", "v_scale"])
 
-    def __init__(self, embed_dim, num_heads, dropout=0.0, device=None,
-                 dtype=None):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, device: DeviceLike = None, dtype=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
-        fk = dict(device=device, dtype=dtype)
+        if need_weights:
+            raise UnimplementedError(
+                "MultiHeadAttention(need_weights=True) is not ported: the "
+                "flash kernels never form the attention weights, and the "
+                "JAX package returns none either")
+        no_param_attrs("MultiHeadAttention", weight_attr=weight_attr,
+                       bias_attr=bias_attr)
+        fk = dict(device=resolve_device(device), dtype=dtype)
         self.embed_dim = embed_dim
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
-        self.q_proj = nn.Linear(embed_dim, embed_dim, **fk)
-        self.k_proj = nn.Linear(embed_dim, embed_dim, **fk)
-        self.v_proj = nn.Linear(embed_dim, embed_dim, **fk)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, **fk)
+        self.q_proj = Linear(embed_dim, embed_dim, **fk)
+        self.k_proj = Linear(self.kdim, embed_dim, **fk)
+        self.v_proj = Linear(self.vdim, embed_dim, **fk)
+        self.out_proj = Linear(embed_dim, embed_dim, **fk)
 
     def _split_heads(self, x):
         b, s = x.shape[0], x.shape[1]
@@ -124,6 +149,20 @@ class MultiHeadAttention(nn.Module):
     def _merge_heads(self, x):
         b, n, s, h = x.shape
         return x.transpose(1, 2).reshape(b, s, n * h)
+
+    def gen_cache(self, key, value=None, type=None):
+        """``type=StaticCache``: the projected K/V of ``key`` (the
+        memory) and ``value`` (default ``key``), (B, N, S, H).
+        Otherwise an empty incremental ``Cache`` (B, N, 0, H) in
+        ``key``'s dtype and device."""
+        if type == MultiHeadAttention.StaticCache:
+            value = key if value is None else value
+            return self.StaticCache(self._split_heads(self.k_proj(key)),
+                                    self._split_heads(self.v_proj(value)))
+        empty = (key.shape[0], self.num_heads, 0, self.head_dim)
+        return self.Cache(
+            torch.zeros(empty, dtype=key.dtype, device=key.device),
+            torch.zeros(empty, dtype=key.dtype, device=key.device))
 
     def gen_ring_cache(self, batch, max_len, dtype=torch.float32,
                        device=None):
@@ -177,38 +216,54 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, cache_position=None, decode_window=None):
-        if cache is not None:
+        """Attention of ``query`` over ``key``/``value`` (default: the
+        query itself).  With a ``StaticCache`` the cached memory K/V
+        stand for key and value; with a ``Cache`` the new K/V are
+        appended to it on the sequence axis and ``(out, cache)`` is
+        returned; any other cache is a ring cache (the decode path,
+        ``(out, cache)`` too)."""
+        if cache is not None \
+                and not isinstance(cache, (self.Cache, self.StaticCache)):
             return self._forward_ring(query, attn_mask, cache,
                                       cache_position, decode_window)
         key = query if key is None else key
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
-        k = self._split_heads(self.k_proj(key))
-        v = self._split_heads(self.v_proj(value))
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
+            if cache is not None:
+                k = torch.cat([cache.k, k], dim=2)
+                v = torch.cat([cache.v, v], dim=2)
+                cache = self.Cache(k, v)
         out = attention_bnsh(q, k, v, attn_mask=attn_mask)
         # dropout on the attention OUTPUT, as the JAX layer does: the
         # flash kernels need no dropout of their own
         if self.dropout:
             out = dropout(out, self.dropout, training=self.training)
-        return self.out_proj(self._merge_heads(out))
+        out = self.out_proj(self._merge_heads(out))
+        return (out, cache) if isinstance(cache, self.Cache) else out
 
 
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, device=None, dtype=None):
+                 normalize_before=False, device: DeviceLike = None,
+                 dtype=None):
         super().__init__()
-        fk = dict(device=device, dtype=dtype)
+        fk = dict(device=resolve_device(device), dtype=dtype)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                             **fk)
-        self.linear1 = nn.Linear(d_model, dim_feedforward, **fk)
+        self.linear1 = Linear(d_model, dim_feedforward, **fk)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, **fk)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, **fk)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, **fk)
+        self.linear2 = Linear(dim_feedforward, d_model, **fk)
+        self.norm1 = LayerNorm(d_model, 1e-5, **fk)
+        self.norm2 = LayerNorm(d_model, 1e-5, **fk)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
         self.activation = getattr(F, activation)     # gelu: exact (erf)
@@ -291,3 +346,153 @@ class TransformerEncoder(nn.Module):
         """Per-layer ring caches for incremental decode."""
         return [layer.gen_ring_cache(batch, max_len, dtype, device)
                 for layer in self.layers]
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self-attention over the target, cross-attention over the encoder's
+    ``memory`` and the feed-forward block, each in a residual with its
+    LayerNorm after it (post-norm) or before it (``normalize_before``).
+    With a ``cache`` (``gen_cache``) the forward returns ``(tgt,
+    (incremental Cache, StaticCache))``."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 device: DeviceLike = None, dtype=None):
+        super().__init__()
+        no_param_attrs("TransformerDecoderLayer", weight_attr=weight_attr,
+                       bias_attr=bias_attr)
+        fk = dict(device=resolve_device(device), dtype=dtype)
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            **fk)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             **fk)
+        self.linear1 = Linear(d_model, dim_feedforward, **fk)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, **fk)
+        self.norm1 = LayerNorm(d_model, 1e-5, **fk)
+        self.norm2 = LayerNorm(d_model, 1e-5, **fk)
+        self.norm3 = LayerNorm(d_model, 1e-5, **fk)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incremental = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                              cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, memory_mask,
+                              None if cache is None else cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental, cache[1]))
+
+    def gen_cache(self, memory):
+        """(an empty incremental ``Cache``, the ``StaticCache`` of
+        ``memory``'s projected K/V)."""
+        return (self.self_attn.gen_cache(memory),
+                self.cross_attn.gen_cache(memory, memory,
+                                          MultiHeadAttention.StaticCache))
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [decoder_layer if i == 0 else _fresh_clone(decoder_layer)
+             for i in range(num_layers)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, new_cache = mod(output, memory, tgt_mask,
+                                        memory_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        """One ``(Cache, StaticCache)`` a layer; ``do_zip`` regroups them
+        as (the incremental caches, the static caches)."""
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        return list(zip(*cache)) if do_zip else cache
+
+
+class Transformer(nn.Module):
+    """The encoder-decoder Transformer: ``decoder(tgt, encoder(src))``.
+    A final LayerNorm ends each stack only under ``normalize_before``.
+    Lands on CUDA unless the caller passes ``device="cpu"``."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *,
+                 device: DeviceLike = None, dtype=None):
+        super().__init__()
+        no_param_attrs("Transformer", weight_attr=weight_attr,
+                       bias_attr=bias_attr)
+        fk = dict(device=resolve_device(device), dtype=dtype)
+        layer_args = (d_model, nhead, dim_feedforward, dropout, activation,
+                      attn_dropout, act_dropout, normalize_before)
+
+        def final_norm():
+            return LayerNorm(d_model, 1e-5, **fk) \
+                if normalize_before else None
+
+        self.encoder = custom_encoder if custom_encoder is not None \
+            else TransformerEncoder(
+                TransformerEncoderLayer(*layer_args, **fk),
+                num_encoder_layers, final_norm())
+        self.decoder = custom_decoder if custom_decoder is not None \
+            else TransformerDecoder(
+                TransformerDecoderLayer(*layer_args, **fk),
+                num_decoder_layers, final_norm())
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    def generate_square_subsequent_mask(self, length):
+        """The additive causal mask of a target of ``length`` tokens: f32
+        (length, length), 0 on and below the diagonal and -1e30 above,
+        on the module's device."""
+        keep = torch.ones((length, length), dtype=torch.bool,
+                          device=module_device(self)).tril()
+        return torch.zeros(keep.shape, dtype=torch.float32,
+                           device=keep.device).masked_fill_(~keep, -1e30)

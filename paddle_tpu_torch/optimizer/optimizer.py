@@ -10,7 +10,8 @@ with their scalars rounded to f32 as JAX computes them:
 
 with ``wd`` the decoupled decay of AdamW (0 for Adam, whose
 ``weight_decay`` is the coupled L2 term added to the gradient) and ``t``
-the step count.  Parameters are named: pass ``model.named_parameters()``
+the step count.  A ``grad_clip`` (``nn.clip``) scales the gradients
+before the rule.  Parameters are named: pass ``model.named_parameters()``
 for names that ``apply_decay_param_fun`` and ``state_dict`` can use (a
 ``TrainStep`` names them from its layer either way).
 
@@ -26,7 +27,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..framework.enforce import UnimplementedError
 from .lr import LRScheduler
 
 
@@ -97,10 +97,7 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
-        if grad_clip is not None:
-            raise UnimplementedError(
-                "grad_clip is not ported yet: a later slice of "
-                "paddle_tpu_torch ports nn.clip")
+        self._grad_clip = grad_clip
         self._lr = learning_rate
         self._params = _named(parameters)
         self._weight_decay = float(weight_decay) if weight_decay else 0.0
@@ -144,6 +141,11 @@ class Optimizer:
               if p.requires_grad and p.grad is not None]
         if not pg:
             return
+        if self._grad_clip is not None:
+            # before the update rule and its coupled L2 term, as JAX's
+            # Optimizer._collect and _functional_grads apply it
+            clipped = self._grad_clip([(p, g) for _, p, g in pg])
+            pg = [(n, p, g) for (n, _, _), (p, g) in zip(pg, clipped)]
         self._step_count += 1
         self._apply(pg)
 

@@ -162,3 +162,26 @@ def test_dense_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
     out = inference.create_predictor(cfg).run([np.ones((3, 4), "float32")])
     assert out[0].shape == (3, 2)
     assert jit.load(prefix, device="cpu").device.type == "cpu"
+
+
+def test_seq2seq_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    from paddle_tpu_torch import nn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: nn.Transformer(64, 4, 1, 1, 128, **kw),
+                 lambda **kw: nn.TransformerDecoderLayer(16, 2, 32, **kw),
+                 lambda **kw: nn.TransformerEncoderLayer(16, 2, 32, **kw),
+                 lambda **kw: nn.MultiHeadAttention(16, 2, kdim=8, vdim=12,
+                                                    **kw),
+                 lambda **kw: nn.Linear(8, 4, **kw),
+                 lambda **kw: nn.Embedding(16, 8, **kw),
+                 lambda **kw: nn.LayerNorm(8, **kw)):
+        with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+            make()
+        with pytest.raises(PreconditionNotMetError):
+            make(device="cuda")
+        assert all(p.device.type == "cpu"
+                   for p in make(device="cpu").parameters())
+    m = nn.Transformer(64, 4, 1, 1, 128, dropout=0.0, device="cpu")
+    assert m.generate_square_subsequent_mask(4).device.type == "cpu"
+    out = m(torch.randn(2, 6, 64), torch.randn(2, 5, 64))
+    assert out.shape == (2, 5, 64) and bool(torch.isfinite(out).all())

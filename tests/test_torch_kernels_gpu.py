@@ -218,6 +218,14 @@ FA_CASES = {
     "h256_shared_bias": (1, 2, 128, 128, 256, False, (1, 1, 128, 128)),
     "full_bias_causal": (2, 2, 128, 128, 64, True, (2, 2, 128, 128)),
     "ragged_77": (1, 3, 77, 77, 64, False, (1, 1, 1, 77)),
+    # the Transformer's shapes (chip_smoke.py FA_CHECKS): S = 64 below the
+    # 128-row tile, cross-attention with Sq != Sk either way round (not
+    # causal, under a source-padding bias), and the square target mask
+    # of 0 / -1e30 (generate_square_subsequent_mask)
+    "s64_n4": (2, 4, 64, 64, 64, False, None),
+    "cross_96x40_pad_bias": (2, 4, 96, 40, 64, False, (2, 1, 1, 40)),
+    "cross_40x96": (2, 4, 40, 96, 64, False, None),
+    "s64_square_mask": (2, 4, 64, 64, 64, False, "square"),
 }
 
 
@@ -247,7 +255,10 @@ def _fa_case(name, dev, dtype, seed=0):
     q, k, v = t(B, N, Sq, H), t(B, N, Sk, H), t(B, N, Sk, H)
     do = t(B, N, Sq, H)
     bias = None
-    if bshape is not None:
+    if bshape == "square":
+        bias = torch.from_numpy(np.triu(np.full((1, 1, Sq, Sk), -1e30,
+                                                np.float32), 1)).to(dev)
+    elif bshape is not None:
         bias = torch.from_numpy(np.where(rng.rand(*bshape) < 0.2, -1e4,
                                          0.0).astype(np.float32)).to(dev)
     return ([x.to(dev, dtype) for x in (q, k, v, do)], bias, causal)

@@ -1,8 +1,10 @@
 """Transformer layers of the PyTorch port against the JAX package:
 ``ring_block_write`` (including a block that wraps the ring),
-``quantize_kv_rows`` / ``dequantize_kv_rows`` and one ring-cache
-MultiHeadAttention step (prefill block, then a decode step), in f32 on
-the CPU.  Tolerance of the MHA step: atol 1e-5 — the projections
+``quantize_kv_rows`` / ``dequantize_kv_rows``, one ring-cache
+MultiHeadAttention step (prefill block, then a decode step) and a
+cross-attention with key and value widths of their own (``kdim``,
+``vdim``), in f32 on the CPU; and the arguments the port refuses.
+Tolerance of the MHA step: atol 1e-5 — the projections
 are f32 matmuls whose summation order differs between XLA and torch
 (a few 1e-7 per product at width 128)."""
 import numpy as np
@@ -166,3 +168,54 @@ def test_batch_invariant_linear_rows_do_not_depend_on_their_batch(lead):
         assert torch.equal(flat[i:i + 1], alone), i
     torch.testing.assert_close(out, torch.nn.functional.linear(x, w, b),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_cross_attention_with_kdim_vdim_matches_jax():
+    """MultiHeadAttention(kdim, vdim): k_proj and v_proj take the key's
+    and the value's widths; a query of 12 tokens over 20 keys under a
+    key-padding mask, and the StaticCache of the same key and value."""
+    paddle.seed(81)
+    E, N, KD, VD = 64, 4, 48, 40
+    jm = jtr.MultiHeadAttention(E, N, kdim=KD, vdim=VD)
+    tm = ttr.MultiHeadAttention(E, N, kdim=KD, vdim=VD, device="cpu")
+    load_jax_state(tm, jax_params(jm))
+    assert tuple(tm.k_proj.weight.shape) == (E, KD)
+    assert tuple(tm.v_proj.weight.shape) == (E, VD)
+    rng = np.random.RandomState(82)
+    q = rng.randn(2, 12, E).astype(np.float32)
+    k = rng.randn(2, 20, KD).astype(np.float32)
+    v = rng.randn(2, 20, VD).astype(np.float32)
+    mask = np.where(np.arange(20)[None, :] < np.array([[14], [20]]), 0.0,
+                    -1e4).astype(np.float32)[:, None, None, :]
+    jargs = [paddle.to_tensor(x) for x in (q, k, v, mask)]
+    targs = [torch.from_numpy(x) for x in (q, k, v, mask)]
+    want = jm(*jargs).numpy()
+    with torch.no_grad():
+        got = tm(*targs).numpy()
+        static = tm.gen_cache(targs[1], targs[2],
+                              ttr.MultiHeadAttention.StaticCache)
+        cached = tm(targs[0], attn_mask=targs[3], cache=static).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(cached, got)
+
+
+def test_arguments_the_port_does_not_take_raise():
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.framework.enforce import UnimplementedError
+    from paddle_tpu_torch.nn import functional as F
+    refused = (
+        lambda: nn.MultiHeadAttention(8, 2, need_weights=True,
+                                      device="cpu"),
+        lambda: nn.Linear(4, 2, weight_attr=object(), device="cpu"),
+        lambda: nn.LayerNorm(4, bias_attr=False, device="cpu"),
+        lambda: nn.Embedding(8, 4, sparse=True, device="cpu"),
+        lambda: nn.Transformer(8, 2, 1, 1, 16, weight_attr=object(),
+                               device="cpu"),
+        lambda: nn.CrossEntropyLoss(weight=torch.ones(3)),
+        lambda: nn.CrossEntropyLoss(use_softmax=False),
+        lambda: F.cross_entropy(torch.zeros(2, 3), torch.zeros(2).long(),
+                                axis=0),
+    )
+    for make in refused:
+        with pytest.raises(UnimplementedError):
+            make()

@@ -85,9 +85,15 @@ without printing a result:
               spill directory: spilled blobs equal the RAM snapshots byte
               for byte, one blob truncated, a new server restores the
               other 15 for turn 3 and re-prefills the torn one); drain (8
-              requests of 96 new tokens: drain() parks 8 mid-generation,
-              their futures fail with UnavailableError, a second server
-              over the spill directory resumes each, its preseed exact);
+              requests of 96 new tokens, admitted together: drain() parks
+              8 mid-generation once the last to start has emitted a count
+              of tokens set from --seed, the same counts every run, their
+              futures fail with UnavailableError, a second server over
+              the spill directory resumes each, its preseed exact; the
+              tokens before the park held to generate() as slot rows, the
+              resumed ones to a geometry-matched oracle that replays each
+              row from its snapshot at the columns it was served at, and
+              their gaps against generate() reported);
               parked capacity (1000 conversations of 160 + 2 tokens:
               host bytes a session held to the widths, parks a second,
               ring bytes a conversation with and without the store); the
@@ -199,7 +205,20 @@ without printing a result:
               traced step), resnet_paths (the fused-BN-only path: B5
               stats and apply = 53 x steps; and kernels off, cuDNN + plain
               BN, timed beside kernels on) and resnet_parity (f32, batch
-              8, kernels on against off).
+              8, kernels on against off);
+ 13. wide_deep  bench.py's Wide&Deep CTR (WideDeep() defaults: 26 slots,
+              emb 16, 13 dense, hidden 400 x 3; adagrad 0.05, Adam 1e-3;
+              random weights from --seed) in device-cache mode, which
+              launches no hand-written kernel: cache mode against
+              pull/push, a capacity that evicts against the full one and
+              the device dedup against np.unique, bit for bit (6 f32-wire
+              batches of 8192); the card against the port on the CPU
+              (batch 1024, 3 steps: losses, every parameter's and table's
+              change); one batch of 32768 through the MultiSlot file path,
+              2 + 8 bf16-wire steps (finite losses that fall), host and
+              in-graph (captured-step) examples/s, the idle share of a
+              traced window, cache hits, misses and evictions, host prep a
+              step; read-through eval equal to the flushed tables'.
 
 The last lines are the card as nvidia-smi reports it, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
@@ -208,6 +227,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import re
@@ -1529,8 +1549,15 @@ CHAT = dict(conversations=16, turns=3, first=(96, 128), more=(16, 49),
             reply=(16, 33))
 # the first 8 conversations again through the speculative slot server
 SPEC_CONVERSATIONS = 8
-# drain: 8 session requests of 96 new tokens, parked mid-generation
+# drain: 8 session requests of 96 new tokens, parked mid-generation.  The
+# 8 are admitted together, in conversation order, and parked after the
+# step at which the last row to start has emitted _drain_park_tokens(seed)
+# tokens, so every run parks each row at the same count
 DRAIN_REQUESTS, DRAIN_NEW = 8, 96
+
+
+def _drain_park_tokens(seed):
+    return int(np.random.RandomState(seed + 29).randint(4, 33))
 # parked capacity (bench.py:1394-1427): conversations of 2.5 chunks (160
 # tokens) and 2 new tokens each, all parked into one store.  Cut from
 # bench.py's 1000 to 256 (still >= 3 x 8 slots, as its claim needs): on
@@ -1669,7 +1696,8 @@ def _decode_nodes(model, step, draft=None):
     return nodes
 
 
-def _check_turns(torch, model, oracle, reqs, served, where, tie_share):
+def _check_turns(torch, model, oracle, reqs, served, where, tie_share,
+                 hold=True):
     """``_check_rows``' rule over many rows at once: the rows of one
     generate() geometry (prefill bucket P, cache bucket C) are teacher-
     forced together, 8 a batch (the serving phase's batch bucket, where
@@ -1677,8 +1705,8 @@ def _check_turns(torch, model, oracle, reqs, served, where, tie_share):
     row-invariant), each fed its own served tokens.  Every token is the
     oracle's argmax or within SLOT_TIE_RTOL of the oracle's max |logit|
     below its top logit, and such near ties make at most ``tie_share``
-    of the tokens.  Returns the rows without a near tie and the ties
-    (row, token, gap share)."""
+    of the tokens (``_tie_rule``; with ``hold=False`` nothing is held).
+    Returns the rows without a near tie and the ties."""
     groups = {}
     for i, (p, mn) in enumerate(reqs):
         check(served[i].shape == (mn,),
@@ -1711,22 +1739,33 @@ def _check_turns(torch, model, oracle, reqs, served, where, tie_share):
             per = torch.stack(per, 1).cpu().numpy()
             for j, i in enumerate(part):
                 stats[i] = per[j]
-    ties, equal = [], 0
-    for i, (p, mn) in enumerate(reqs):
+    return _tie_rule(stats, dict(enumerate(served)), where, tie_share, hold)
+
+
+def _tie_rule(stats, served, where, tie_share, hold=True):
+    """Every token ``t`` of each row ``served[i]`` is the argmax of its
+    oracle (``stats[i][t]``: top logit, the served token's logit, max
+    |logit|, argmax) or within SLOT_TIE_RTOL of the max |logit| below the
+    top, and such near ties make at most ``tie_share`` of the tokens
+    (``hold=False``: nothing is held, the gaps are only returned).
+    Returns the rows without a near tie and the ties (row, token, gap
+    share)."""
+    ties, equal, tokens = [], 0, 0
+    for i, toks in served.items():
         row_ties = 0
-        for t, (top, mine, scale, arg) in enumerate(stats[i][:mn]):
-            if int(arg) == int(served[i][t]):
+        for t, (top, mine, scale, arg) in enumerate(stats[i][:len(toks)]):
+            tokens += 1
+            if int(arg) == int(toks[t]):
                 continue
             gap = float(top - mine)
-            check(gap <= SLOT_TIE_RTOL * scale,
-                  f"{where}: row {i} (prompt {p.size}) token {t} = "
-                  f"{int(served[i][t])} lies {gap} below the oracle's top "
-                  f"logit (token {int(arg)}), more than 2^-6 x {scale}")
+            check(not hold or gap <= SLOT_TIE_RTOL * scale,
+                  f"{where}: row {i} token {t} = {int(toks[t])} lies {gap} "
+                  f"below the oracle's top logit (token {int(arg)}), more "
+                  f"than 2^-6 x {scale}")
             ties.append((i, t, gap / float(scale)))
             row_ties += 1
         equal += row_ties == 0
-    tokens = sum(mn for _, mn in reqs)
-    check(len(ties) <= tie_share * tokens,
+    check(not hold or len(ties) <= tie_share * tokens,
           f"{where}: {len(ties)} near-tie tokens of {tokens}, more than "
           f"{tie_share} of them: {_tie_summary(ties)}")
     return equal, ties
@@ -1806,16 +1845,47 @@ def _chat_run(torch, model, plan, kv, store, draft=None):
     return reqs, served, out
 
 
-def _held_for_drain(loop, rows):
-    """Hold the loop's driver, once ``rows`` rows generate, until a park
-    request arrives, so that a drain lands mid-generation.  Returns the
-    event set when the hold begins."""
+def _admit_together(loop, sids):
+    """Hold the loop's admissions until every request of ``sids`` is
+    pending, then admit them in ``sids``' order: the server's workers
+    submit in whatever order they run, and the schedule (chunks, columns,
+    activations) follows the admission order.  Returns the list that
+    records (session id, start, activation, parked columns) of every
+    session restore the loop installs."""
+    admit, install = loop._admit, loop._install_session
+    rank, held, placed = {sid: k for k, sid in enumerate(sids)}, [True], []
+
+    def admit_together():
+        if held[0]:
+            if sum(r.session_id in rank for r in loop._pending) < len(sids):
+                loop._cond.wait(0.002)       # called with _cond held
+                return
+            loop._pending = type(loop._pending)(sorted(
+                loop._pending, key=lambda r: rank.get(r.session_id, -1)))
+            held[0] = False
+        admit()
+
+    def install_recorded(slot, head):
+        install(slot, head)
+        placed.append((head.session_id, slot.start, slot.act,
+                       head.planes_len))
+
+    loop._admit = admit_together
+    loop._install_session = install_recorded
+    return placed
+
+
+def _held_for_drain(loop, rows, tokens):
+    """Hold the slot loop's thread, once ``rows`` rows generate and the one
+    that started last has emitted ``tokens`` tokens, until a park request
+    arrives, so that a drain lands mid-generation at the same tokens in
+    every run.  Returns the event set when the hold begins."""
     step, ready = loop._decode_step, threading.Event()
 
     def held():
         step()
-        if not ready.is_set() and sum(s.state == 2
-                                      for s in loop._slots) == rows:
+        gen = [len(s.emitted) for s in loop._slots if s.state == 2]
+        if not ready.is_set() and len(gen) == rows and min(gen) >= tokens:
             ready.set()
             t0 = time.perf_counter()
             while loop._park_req is None and time.perf_counter() - t0 < 60:
@@ -1823,6 +1893,45 @@ def _held_for_drain(loop, rows):
 
     loop._decode_step = held
     return ready
+
+
+def _geometry_oracle(torch, model, oracle, snaps, placed, served):
+    """Each resumed row replayed at batch 1 at the columns it was served
+    at: the snapshot's planes pushed into a fresh 768-column ring at the
+    row's window [start, start + parked columns), the snapshot's logits
+    first, then the served tokens fed one at a time at the row's
+    positions.  Rows are independent in forward_cached and its GEMMs are
+    row-invariant, so where the restore adds no error this oracle rounds
+    as the served step did.  Returns, per row, the oracle's (top, served
+    token's logit, max |logit|, argmax) of every resumed token."""
+    from paddle_tpu_torch.text.generation import Generator
+    ids, st = oracle.pack_prompts([np.ones(1, np.int32)], 128)
+    stats = {}
+    with torch.inference_mode():
+        for sid, start, act, lc in placed:
+            c = int(sid.split("-")[1])
+            snap = snaps[c]
+            check(act == start + lc and lc == len(snap.tokens),
+                  f"sessions drain: {sid} resumed at start {start}, "
+                  f"activation {act}, {lc} parked columns")
+            cache, _ = oracle.prefill(ids, st, SLOT_CACHE)
+            Generator.push_block(cache, snap.planes, 0, start)
+            logits = snap.logits.to("cuda", torch.float32)[None]
+            fed = served[c][len(snap.emitted):]
+            begin = torch.as_tensor([start], device="cuda")
+            per = []
+            for t, tok in enumerate(fed):
+                tok = int(tok)
+                per.append([float(logits.max()), float(logits[0, tok]),
+                            float(logits.abs().max()),
+                            int(logits.argmax())])
+                if t + 1 < len(fed):
+                    nl, cache = model.forward_cached(
+                        torch.tensor([[tok]], dtype=torch.int32,
+                                     device="cuda"), cache, act + t, begin)
+                    logits = nl[:, 0].float()
+            stats[c] = per
+    return stats
 
 
 def _sessions_spill(torch, model, plan, oracle, tmp):
@@ -1873,23 +1982,33 @@ def _sessions_spill(torch, model, plan, oracle, tmp):
             **_tie_summary(ties)}
 
 
-def _sessions_drain(torch, model, plan, oracle, tmp):
-    """8 session requests of 96 new tokens; drain() while all 8 generate:
-    8 parked, their futures fail with UnavailableError; each resubmitted
-    to a second server over the shared spill directory resumes: its
-    preseed equals the tokens emitted before the park, the rest is held
-    to the oracle."""
+def _sessions_drain(torch, model, plan, oracle, tmp, seed):
+    """8 session requests of 96 new tokens, admitted together; drain()
+    once the last row to start has emitted _drain_park_tokens(seed) tokens:
+    8 parked at the same counts in every run, their futures fail with
+    UnavailableError; each resubmitted to a second server over the shared
+    spill directory (admitted together again) resumes: its preseed equals
+    the tokens emitted before the park.  The tokens before the park are
+    held to the generate() oracle (slot rows, as in the slots phase);
+    the resumed ones to the geometry-matched oracle, which replays each
+    row from its snapshot at the columns it was served at; near ties at
+    most SLOT_TIE_SHARE["churn"] of the drain's tokens.  The resumed
+    tokens' gaps against the generate() oracle, whose geometry differs,
+    are reported, not held."""
     from paddle_tpu_torch.framework.enforce import UnavailableError
     from paddle_tpu_torch.serving.sessions import SessionSnapshot
     spill = os.path.join(tmp, "drain")
     prompts = [plan[c][0][0] for c in range(DRAIN_REQUESTS)]
+    sids = [f"drain-{c}" for c in range(DRAIN_REQUESTS)]
+    park_at = _drain_park_tokens(seed)
     srv = _session_server(torch, model, "bf16", True, spill)
     try:
         loop = srv._models["gpt2"]._loop
-        ready = _held_for_drain(loop, DRAIN_REQUESTS)
+        _admit_together(loop, sids)
+        ready = _held_for_drain(loop, DRAIN_REQUESTS, park_at)
         futs = [srv.submit_decode("gpt2", [p], max_new_tokens=DRAIN_NEW,
-                                  timeout=60, session_id=f"drain-{c}")
-                for c, p in enumerate(prompts)]
+                                  timeout=60, session_id=sid)
+                for sid, p in zip(sids, prompts)]
         check(ready.wait(120), "sessions drain: the rows never all "
               "generated")
         report = srv.drain(timeout_s=60)
@@ -1908,40 +2027,64 @@ def _sessions_drain(torch, model, plan, oracle, tmp):
           "UnavailableError")
     snaps = {}
     for c in range(DRAIN_REQUESTS):
-        with open(store._paths(f"drain-{c}")[0], "rb") as f:
+        with open(store._paths(sids[c])[0], "rb") as f:
             snaps[c] = SessionSnapshot.from_bytes(f.read())
         s = snaps[c]
         check(s.remaining > 0 and len(s.emitted) + s.remaining == DRAIN_NEW
               and s.planes is not None and s.logits is not None,
               f"sessions drain: conversation {c} parked {len(s.emitted)} "
               f"tokens, {s.remaining} left")
+    parked_at = [len(snaps[c].emitted) for c in range(DRAIN_REQUESTS)]
+    check(min(parked_at) == park_at, f"sessions drain: parked after "
+          f"{parked_at} tokens, the last row to start after {park_at}")
     srv = _session_server(torch, model, "bf16", True, spill)
     try:
         loop = srv._models["gpt2"]._loop
+        placed = _admit_together(loop, sids)
         watch = _watch_restores(torch, loop)
         futs = [srv.submit_decode("gpt2", [p], max_new_tokens=DRAIN_NEW,
-                                  timeout=60, session_id=f"drain-{c}")
-                for c, p in enumerate(prompts)]
+                                  timeout=60, session_id=sid)
+                for sid, p in zip(sids, prompts)]
         served = [f.result(timeout=600)[0][0] for f in futs]
         c = dict(loop.counters)
     finally:
         srv.stop()
     replayed = sum(list(served[i][:len(snaps[i].emitted)])
                    == snaps[i].emitted for i in range(DRAIN_REQUESTS))
-    check(c["restored"] == DRAIN_REQUESTS == watch["checked"]
+    check(c["restored"] == DRAIN_REQUESTS == watch["checked"] == len(placed)
           == replayed and not watch["bad"],
           f"sessions drain: restored {c['restored']}, pulls {watch}, "
           f"{replayed} preseeds replayed exactly")
-    equal, ties = _check_turns(
+    # each token held to its oracle's near-tie gap here, the share of
+    # near ties over all the drain's tokens below (as for any slot row)
+    before, b_ties = _check_turns(
+        torch, model, oracle, [(p, k) for p, k in zip(prompts, parked_at)],
+        [served[i][:k] for i, k in enumerate(parked_at)],
+        "sessions drain before the park", 1.0)
+    stats = _geometry_oracle(torch, model, oracle, snaps, placed, served)
+    equal, ties = _tie_rule(
+        stats, {c: served[c][len(snaps[c].emitted):] for c in stats},
+        "sessions drain resumed (geometry oracle)", 1.0)
+    tokens = DRAIN_REQUESTS * DRAIN_NEW
+    check(len(b_ties) + len(ties) <= SLOT_TIE_SHARE["churn"] * tokens,
+          f"sessions drain: {len(b_ties)} near ties before the park and "
+          f"{len(ties)} after it of {tokens} tokens")
+    _, g_ties = _check_turns(
         torch, model, oracle, [(p, DRAIN_NEW) for p in prompts], served,
-        "sessions drain", SLOT_TIE_SHARE["churn"])
+        "sessions drain (generate() oracle)", SLOT_TIE_SHARE["churn"],
+        hold=False)
+    resumed_g = [g for g in g_ties if g[1] >= parked_at[g[0]]]
     return {"parked_sessions": report["parked_sessions"],
-            "refused_unavailable": refused,
-            "emitted_before_park": [len(snaps[i].emitted)
-                                    for i in range(DRAIN_REQUESTS)],
+            "refused_unavailable": refused, "park_at_tokens": park_at,
+            "emitted_before_park": parked_at,
+            "resumed_at": [(sid, st, act) for sid, st, act, _ in placed],
             "preseeds_exact": replayed, "restored": c["restored"],
-            "rows_without_tie": f"{equal}/{DRAIN_REQUESTS}",
-            **_tie_summary(ties)}
+            "before_park": {"rows_without_tie": f"{before}/{DRAIN_REQUESTS}",
+                            **_tie_summary(b_ties)},
+            "resumed_geometry_oracle": {
+                "rows_without_tie": f"{equal}/{DRAIN_REQUESTS}",
+                **_tie_summary(ties)},
+            "resumed_generate_oracle_reported": _tie_summary(resumed_g)}
 
 
 def _sessions_capacity(torch, model, seed):
@@ -2092,7 +2235,8 @@ def phase_sessions(torch, model, seed):
         log("sessions", path="spec", **run)
         del draft
         for name, fn in (("spill", _sessions_spill),
-                         ("drain", _sessions_drain)):
+                         ("drain", functools.partial(_sessions_drain,
+                                                     seed=seed))):
             t0 = time.perf_counter()
             out[name] = fn(torch, model, plan, oracle, tmp)
             secs[name] = round(time.perf_counter() - t0, 1)
@@ -4523,6 +4667,278 @@ def _fused_kernel_records(worst, t, resnet, paths):
 
 # -- main --------------------------------------------------------------------
 
+# -- phase 13: Wide&Deep CTR over the PS tables (bench.py:330-396) ----------
+
+# bench.py's on-chip bench_wide_deep: WideDeep() defaults (26 slots,
+# emb_dim 16, 13 dense features, hidden 400 x 3), adagrad at 0.05 on both
+# sparse tables, Adam 1e-3 on the dense side, batch 32768, the device
+# cache at 2^20 rows, the bf16 feature wire; one batch read through the
+# MultiSlot file path, 2 warm-up and 8 timed step_async steps
+WIDE_DEEP = dict(batch=32768, files=4, capacity=1 << 20, lr=1e-3,
+                 sparse_lr=0.05, warmup=2, steps=8)
+# the mode checks (f32 wire): 6 seeded batches of 8192 at full width,
+# cache against pull/push, a capacity that evicts, the device dedup
+WD_MODES = dict(batch=8192, steps=6)
+# the card against the port on the CPU: full width, batch 1024, 3 steps
+WD_CPU = dict(batch=1024, steps=3)
+# Limits of the card against the CPU.  The losses: rtol 1e-4 (the GEMMs
+# sum in other orders; JAX's cache-against-pull/push limit is 2e-4).
+# Each dense parameter's and each table's change over the run, held in
+# norm: |change card - change cpu| <= 1e-3 |change cpu|.  Not element by
+# element: the first Adam and adagrad steps move an element by about
+# lr x sign(g), so a gradient element within rounding of 0 can move by 2
+# lr on one device and not on the other (seq2seq_parity above finds the
+# same for Adam's eps).
+WD_CPU_LOSS_RTOL = 1e-4
+WD_CPU_CHANGE_RTOL = 1e-3
+
+
+def _wd_model(torch, seed, device, **kw):
+    from paddle_tpu_torch.rec.wide_deep import WideDeep
+    torch.manual_seed(seed)
+    return WideDeep(sparse_lr=WIDE_DEEP["sparse_lr"], device=device, **kw)
+
+
+def _wd_batches(seed, n, batch):
+    from paddle_tpu_torch.rec.wide_deep import synthetic_ctr_batch
+    return [synthetic_ctr_batch(batch, seed=seed * 1000 + 7 + s)
+            for s in range(n)]
+
+
+def _wd_run(torch, seed, batches, device="cuda", state=None, **kw):
+    """One trainer over ``batches`` (f32 wire): the losses, the dense
+    parameters and both tables' rows of every id seen after flush()."""
+    from paddle_tpu_torch.rec.wide_deep import WideDeepTrainer
+    m = _wd_model(torch, seed, device)
+    if state is not None:
+        m.load_state_dict(state)
+    t = WideDeepTrainer(m, lr=WIDE_DEEP["lr"], feature_wire_dtype="float32",
+                        device=device, **kw)
+    losses = [t.step(*b) for b in batches]
+    t.flush()
+    t.close()
+    uniq = np.unique(np.concatenate([b[0].ravel() for b in batches]))
+    return {"losses": losses, "trainer": t, "uniq": uniq,
+            "params": {n: p.detach().cpu().numpy()
+                       for n, p in m.named_parameters()},
+            "rows": [m.client.pull_sparse(k, uniq) for k in (0, 1)]}
+
+
+def _wd_same(a, b):
+    return a["losses"] == b["losses"] \
+        and all(np.array_equal(x, y) for x, y in zip(a["rows"], b["rows"])) \
+        and all(np.array_equal(a["params"][n], b["params"][n])
+                for n in a["params"])
+
+
+def _wd_modes(torch, seed):
+    """Cache against pull/push, an evicting capacity against the full one,
+    the device dedup against the host np.unique: all bit for bit."""
+    from paddle_tpu_torch.framework import flags
+    batches = _wd_batches(seed, WD_MODES["steps"], WD_MODES["batch"])
+    cache = _wd_run(torch, seed, batches)
+    pull = _wd_run(torch, seed, batches, device_cache=False)
+    check(_wd_same(cache, pull),
+          f"wide_deep: cache mode {cache['losses']} against pull/push "
+          f"{pull['losses']}: not bit for bit (rows equal "
+          f"{[np.array_equal(x, y) for x, y in zip(cache['rows'], pull['rows'])]})")
+    per_batch = max(len(np.unique(b[0])) for b in batches)
+    cap = int(per_batch * 1.25)
+    check(cap < len(cache["uniq"]), f"wide_deep: capacity {cap} holds "
+          f"the run's {len(cache['uniq'])} ids")
+    evict = _wd_run(torch, seed, batches, cache_capacity=cap)
+    ev = evict["trainer"]._slot_dir.evictions
+    check(ev > 0 and _wd_same(evict, cache),
+          f"wide_deep: capacity {cap}: {ev} evictions, losses "
+          f"{evict['losses']} against {cache['losses']}")
+    snap = flags.flags_snapshot()
+    try:
+        flags.set_flags({"FLAGS_wide_deep_device_dedup": True})
+        dedup = _wd_run(torch, seed, batches)
+    finally:
+        flags.flags_restore(snap)
+    check(_wd_same(dedup, cache), f"wide_deep: device dedup losses "
+          f"{dedup['losses']} against {cache['losses']}")
+    return {"batches": len(batches), "batch": WD_MODES["batch"],
+            "losses": [round(x, 6) for x in cache["losses"]],
+            "cache_equals_pullpush_bits": True,
+            "evicting_capacity": cap, "run_ids": len(cache["uniq"]),
+            "evictions": ev, "evicting_equals_full_bits": True,
+            "device_dedup_equals_host_bits": True}
+
+
+def _wd_change_err(after_card, after_cpu, before):
+    """|change card - change cpu| / |change cpu|, in norm."""
+    d_cpu = after_cpu.astype(np.float64) - before
+    d_card = after_card.astype(np.float64) - before
+    return float(np.linalg.norm(d_card - d_cpu)
+                 / max(np.linalg.norm(d_cpu), 1e-30))
+
+
+def _wd_against_cpu(torch, seed):
+    """The card's trainer against the port's on the CPU: the same dense
+    init (the CPU model's weights loaded into the card's), the same
+    tables' seeds and batches, TF32 off, the f32 wire."""
+    from paddle_tpu_torch.distributed.ps import SparseTable
+    batches = _wd_batches(seed + 1, WD_CPU["steps"], WD_CPU["batch"])
+    cpu = _wd_run(torch, seed, batches, device="cpu")
+    init = _wd_model(torch, seed, "cpu").state_dict()
+    card = _wd_run(torch, seed, batches, state=init)
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    before = {n: v.numpy().astype(np.float64) for n, v in init.items()}
+    param_err = {n: _wd_change_err(card["params"][n], cpu["params"][n],
+                                   before[n]) for n in before}
+    # the tables' first rows: a fresh table pulled batch by batch draws
+    # the rows the runs' first misses drew
+    fresh = []
+    for d in (1, 16):
+        table = SparseTable(dim=d, optimizer="adagrad")
+        for b in batches:
+            table.pull(np.unique(b[0]))
+        fresh.append(table.pull(cpu["uniq"]).astype(np.float64))
+    row_err = [_wd_change_err(a, b, f)
+               for a, b, f in zip(card["rows"], cpu["rows"], fresh)]
+    max_abs = max(float(np.abs(a - b).max())
+                  for a, b in zip(card["rows"], cpu["rows"]))
+    check(loss_err <= WD_CPU_LOSS_RTOL, f"wide_deep: card losses "
+          f"{card['losses']} against the CPU's {cpu['losses']}")
+    worst = max(max(param_err.values()), max(row_err))
+    check(worst <= WD_CPU_CHANGE_RTOL,
+          f"wide_deep: card against CPU change errors: params {param_err}, "
+          f"rows {row_err}")
+    return {"batch": WD_CPU["batch"], "steps": WD_CPU["steps"],
+            "losses_card": [round(x, 7) for x in card["losses"]],
+            "loss_rel_err": loss_err,
+            "param_change_rel_err": {n: float(f"{e:.3g}")
+                                     for n, e in param_err.items()},
+            "row_change_rel_err": row_err, "row_max_abs_diff": max_abs,
+            "limits": {"loss_rtol": WD_CPU_LOSS_RTOL,
+                       "change_rtol": WD_CPU_CHANGE_RTOL}}
+
+
+def _wd_data(seed, tmp):
+    """bench.py's data path: write_ctr_files -> ctr_dataset ->
+    load_into_memory -> local_shuffle -> batch_from_feed, one batch."""
+    from paddle_tpu_torch.rec.wide_deep import (batch_from_feed, ctr_dataset,
+                                                write_ctr_files)
+    files = write_ctr_files(tmp, WIDE_DEEP["batch"], n_files=WIDE_DEEP["files"],
+                            seed=seed)
+    ds = ctr_dataset(files, batch_size=WIDE_DEEP["batch"])
+    ds.load_into_memory()
+    ds.set_shuffle_seed(seed)
+    ds.local_shuffle()
+    return batch_from_feed(next(iter(ds)))
+
+
+def _wd_idle(torch, run):
+    """``run()`` traced with torch.profiler: device busy time over the
+    wall time of the run (kernels and copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    if busy <= 0:
+        return {"device_idle_share": "not measured (no CUDA events)"}
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    return {"traced_wall_s": round(wall, 4), "device_busy_s": round(busy, 4),
+            "device_idle_share": round(1 - busy / wall, 4),
+            "device_ops": sum(e.count for e in ev),
+            "top_device_ops": [{"name": e.key[:60], "calls": e.count,
+                                "ms": round(e.self_device_time_total / 1e3,
+                                            3)} for e in top]}
+
+
+def phase_wide_deep(torch, seed, card):
+    """bench.py's Wide&Deep CTR at full width on the card in device-cache
+    mode: the bf16-wire run (finite losses that fall, host and in-graph
+    examples/s, idle share, cache counts, host prep a step), read-through
+    eval against the flushed tables, the mode checks and the CPU
+    parity."""
+    import tempfile
+    from paddle_tpu_torch.rec.wide_deep import WideDeepTrainer
+    out, t_phase = {}, time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["modes"] = _wd_modes(torch, seed)
+    out["modes"]["s"] = round(time.perf_counter() - t0, 1)
+    log("wide_deep", check="modes", **out["modes"])
+    t0 = time.perf_counter()
+    out["cpu"] = _wd_against_cpu(torch, seed)
+    out["cpu"]["s"] = round(time.perf_counter() - t0, 1)
+    log("wide_deep", check="card_against_cpu", **out["cpu"])
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ctr_", dir=os.path.join(ROOT, "build"))
+    try:
+        ids, dense, label = _wd_data(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    data_s = time.perf_counter() - t0
+    m = _wd_model(torch, seed, "cuda")
+    t = WideDeepTrainer(m, lr=WIDE_DEEP["lr"],
+                        cache_capacity=WIDE_DEEP["capacity"],
+                        feature_wire_dtype="bfloat16")
+    check(t._use_cache, "wide_deep: the trainer is not in device-cache mode")
+    B, n = WIDE_DEEP["batch"], WIDE_DEEP["steps"]
+    losses = [t.step(ids, dense, label) for _ in range(WIDE_DEEP["warmup"])]
+    prep = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = []
+    for _ in range(n):
+        pending.append(t.step_async(ids, dense, label))
+        prep.append(t.last_prep_s)
+    losses += [float(x) for x in pending]
+    host_s = time.perf_counter() - t0
+
+    def traced():
+        for _ in range(n):
+            t.step_async(ids, dense, label)
+    idle = _wd_idle(torch, traced)
+    sec = t.in_graph_step_s(ids, dense, label)
+    losses.append(t.step(ids, dense, label))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"wide_deep: bf16-wire losses {losses}")
+    d = t._slot_dir
+    sub = slice(0, 4096)
+    m.eval()
+    with torch.no_grad():
+        through = m(ids[sub], dense[sub]).cpu()
+        t.flush()
+        for emb in (m.wide_emb, m.deep_emb):
+            emb._cache_read = None
+        host = m(ids[sub], dense[sub]).cpu()
+    check(torch.equal(through, host), "wide_deep: the read-through eval "
+          f"differs from the flushed tables' by "
+          f"{float((through - host).abs().max())}")
+    out["train"] = {
+        "card": card, "batch": B, "unique_ids": len(np.unique(ids)),
+        "losses": [round(x, 6) for x in losses],
+        "host_examples_per_s": round(B * n / host_s, 1),
+        "in_graph_step_ms": round(sec * 1e3, 4),
+        "in_graph_examples_per_s": round(B / sec, 1),
+        "host_prep_s_per_step": round(float(np.mean(prep)), 5),
+        "host_s_per_step": round(host_s / n, 5),
+        "cache_hit_rate": round(d.hit_rate, 5), "cache_hits": d.hits,
+        "cache_misses": d.misses, "cache_evictions": d.evictions,
+        "tier_hits": dict(t.tier_hits), "data_path_s": round(data_s, 2),
+        "read_through_eval_equal_bits": True,
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        **idle}
+    log("wide_deep", check="train", **out["train"])
+    log("wide_deep", total_s=round(time.perf_counter() - t_phase, 1))
+    del t, m
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4604,6 +5020,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     _at("resnet_parity")
     phase_resnet_parity(torch, args.seed)
+    torch.cuda.empty_cache()
+    _at("wide_deep")
+    phase_wide_deep(torch, args.seed, env["nvidia_smi"])
     _at("records")
     # checked last, so that a failure still prints every path's trajectory
     check(resnet["losses"][-1] < resnet["losses"][0],

@@ -277,3 +277,22 @@ def fused_conv_enabled() -> bool:
     """FLAGS_use_pallas_fused_conv, or the legacy PADDLE_TPU_PALLAS_CONV=1."""
     return bool(flag("use_pallas_fused_conv")) or \
         os.environ.get("PADDLE_TPU_PALLAS_CONV", "0") == "1"
+
+# ---- Wide&Deep CTR over the parameter server (rec/wide_deep.py) -------------
+define_flag("wide_deep_device_dedup",
+            os.environ.get("PADDLE_TPU_WD_DEDUP", "").lower()
+            in ("1", "true", "yes", "on"),
+            "Wide&Deep cached-mode id dedup runs ON THE DEVICE (a static-"
+            "cap sort-based unique: argsort, boundary flags, cumsum; "
+            "rec/wide_deep.py sort_unique_static) instead of host "
+            "np.unique over the full B*S id block; the host resolves only "
+            "the deduped prefix against the hot-row cache.  The steps are "
+            "bit-identical either way (np.unique also sorts).  Off by "
+            "default.  Seeded by PADDLE_TPU_WD_DEDUP.")
+define_flag("sharded_embedding",
+            os.environ.get("PADDLE_TPU_SHARDED_EMB", "").lower()
+            in ("1", "true", "yes", "on"),
+            "Row-partition the CTR deep-leg embedding table over a mesh "
+            "axis with an all-to-all lookup.  Not ported (ROADMAP A12: it "
+            "needs torch.distributed and four cards): WideDeepTrainer "
+            "raises while this is on.  Seeded by PADDLE_TPU_SHARDED_EMB.")

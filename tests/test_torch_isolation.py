@@ -75,6 +75,12 @@ def test_package_imports_with_jax_unimportable():
             "paddle_tpu_torch.serving.sessions, "
             "paddle_tpu_torch.serving.cluster.handoff\n"
             "from paddle_tpu_torch.serving import SessionStore, KVHandoff\n"
+            "import paddle_tpu_torch.distributed, paddle_tpu_torch.rec\n"
+            "from paddle_tpu_torch.distributed.ps import (DeviceEmbeddingCache,"
+            " PsServer, ShardedPsClient)\n"
+            "from paddle_tpu_torch.distributed import InMemoryDataset\n"
+            "from paddle_tpu_torch.rec.wide_deep import (WideDeepTrainer, "
+            "load_jax_wide_deep)\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -185,3 +191,30 @@ def test_seq2seq_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert m.generate_square_subsequent_mask(4).device.type == "cpu"
     out = m(torch.randn(2, 6, 64), torch.randn(2, 5, 64))
     assert out.shape == (2, 5, 64) and bool(torch.isfinite(out).all())
+
+
+def test_wide_deep_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    from paddle_tpu_torch.distributed.ps import (DeviceEmbeddingCache,
+                                                 DistributedEmbedding,
+                                                 LocalPsEndpoint)
+    from paddle_tpu_torch.rec.wide_deep import (WideDeep, WideDeepTrainer,
+                                                synthetic_ctr_batch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: WideDeep(hidden=(8,), emb_dim=4, **kw),
+                 lambda **kw: DistributedEmbedding(LocalPsEndpoint(), 0, 4,
+                                                   **kw),
+                 lambda **kw: DeviceEmbeddingCache(LocalPsEndpoint(), 0, 4,
+                                                   capacity=16, **kw)):
+        with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+            make()
+        with pytest.raises(PreconditionNotMetError):
+            make(device="cuda")
+    m = WideDeep(hidden=(8,), emb_dim=4, device="cpu")
+    assert all(p.device.type == "cpu" for p in m.parameters())
+    # the trainer does not follow its model to the CPU by itself
+    with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+        WideDeepTrainer(m)
+    t = WideDeepTrainer(m, device="cpu")
+    assert t._w_ar["rows"].device.type == "cpu"
+    loss = t.step_async(*synthetic_ctr_batch(8, vocab=1_000, seed=0))
+    assert loss.device.type == "cpu" and np.isfinite(float(loss))

@@ -1169,3 +1169,106 @@ def test_captured_bucket_replay_equals_the_eager_loaded_program(cuda,
         srv.assert_zero_steady_state_recompiles()
     finally:
         srv.stop()
+
+
+# -- Wide&Deep on the card (no hand-written kernel: its step is gathers,
+# GEMMs, the loss, Adam and scatters) ----------------------------------------
+
+def _wide_deep(cuda, seed=17, **kw):
+    from paddle_tpu_torch.rec.wide_deep import WideDeep, WideDeepTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(seed)
+    m = WideDeep(hidden=(32,), emb_dim=4, device=cuda)
+    return m, WideDeepTrainer(m, feature_wire_dtype="float32", **kw)
+
+
+def _ctr_batches(n=6, batch=128, vocab=50_000):
+    from paddle_tpu_torch.rec.wide_deep import synthetic_ctr_batch
+    return [synthetic_ctr_batch(batch, vocab=vocab, seed=s) for s in range(n)]
+
+
+def _tables(m, batches):
+    uniq = np.unique(np.concatenate([b[0].ravel() for b in batches]))
+    return [m.client.pull_sparse(t, uniq) for t in (0, 1)]
+
+
+def test_wide_deep_cache_mode_equals_pullpush_on_the_card(cuda):
+    """Six f32-wire steps in cache mode (rows, rule and scatter on the
+    card) and in pull/push mode (rule on the host table) from the same
+    init: losses, dense parameters and flushed rows bit for bit (the
+    device rule is the host rule's operations with IEEE square roots)."""
+    out = []
+    for cached in (True, False):
+        m, t = _wide_deep(cuda, device_cache=cached)
+        losses = [t.step(*b) for b in _ctr_batches()]
+        t.flush()
+        out.append((losses, _tables(m, _ctr_batches()),
+                    {n: p.detach().cpu() for n, p in m.named_parameters()}))
+    (la, ta, pa), (lb, tb, pb) = out
+    assert la == lb
+    for x, y in zip(ta, tb):
+        np.testing.assert_array_equal(x, y)
+    assert all(torch.equal(pa[n], pb[n]) for n in pa)
+
+
+def test_wide_deep_captured_step_equals_eager_step(cuda):
+    """in_graph_step_s's CUDA graph: one replay on the trainer's state
+    equals one eager fused step on a clone of the same state, bit for bit
+    (parameters, Adam moments, both arenas, the loss); capturing moves
+    none of the trainer's own state."""
+    from paddle_tpu_torch.rec.wide_deep import _clone_tree
+    m, t = _wide_deep(cuda)
+    batches = _ctr_batches(3)
+    for b in batches[:2]:
+        t.step(*b)
+    before = _clone_tree(t._state())
+    cap = t.capture_step(*batches[2])
+    after = t._state()
+    flat = lambda tree: [x for v in tree.values()  # noqa: E731
+                         for x in (flat(v) if isinstance(v, dict) else [v])]
+    # the capture's prep filled this batch's misses; nothing else moved
+    assert all(torch.equal(a, b) for a, b in zip(flat(before["params"]),
+                                                 flat(after["params"])))
+    cap.load(after)
+    cap.replay(1)
+    eager = _clone_tree(after)
+    for p in eager["params"].values():
+        p.requires_grad_(True)
+    loss = t._fused_cached(eager, *cap.args)
+    assert torch.equal(cap.loss_sum, loss)
+    assert all(torch.equal(a, b) for a, b in zip(flat(cap.state),
+                                                 flat(eager)))
+    assert t.in_graph_step_s(*batches[2]) > 0
+
+
+def test_wide_deep_async_push_grads_equal_sync_push(cuda):
+    """Async push copies each step's row gradients to pinned host memory
+    behind an event and the drain thread pushes them: with a flush after
+    every step, the pushed gradients, tables, losses and dense parameters
+    equal sync push's bit for bit."""
+    out = []
+    for kw in (dict(async_push=True), dict(device_cache=False)):
+        m, t = _wide_deep(cuda, **kw)
+        pushed, real = [], m.client.push_sparse
+
+        def spy(tid, ids, grads, real=real, pushed=pushed):
+            pushed.append((tid, np.array(ids), np.array(grads)))
+            return real(tid, ids, grads)
+
+        m.client.push_sparse = spy
+        losses = []
+        for b in _ctr_batches(4):
+            losses.append(t.step(*b))
+            t.flush()
+        t.close()
+        out.append((losses, pushed, _tables(m, _ctr_batches(4)),
+                    [p.detach().cpu() for p in m.parameters()]))
+    (la, pa, ta, wa), (lb, pb, tb, wb) = out
+    assert la == lb and len(pa) == len(pb) == 8
+    for (i, ia, ga), (j, ib, gb) in zip(pa, pb):
+        assert i == j
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(ga, gb)
+    for x, y in zip(ta, tb):
+        np.testing.assert_array_equal(x, y)
+    assert all(torch.equal(x, y) for x, y in zip(wa, wb))

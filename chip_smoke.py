@@ -220,6 +220,21 @@ without printing a result:
               traced window, cache hits, misses and evictions, host prep a
               step; read-through eval equal to the flushed tables'.
 
+ 14. static_lenet  bench.py's LeNet through the static graph
+              (bench_lenet_static's program text with paddle read as
+              paddle_tpu_torch: Program, static.nn, SGD(0.01).minimize,
+              Executor, train_from_dataset), which launches no
+              hand-written kernel: 5 Executor.run steps captured against
+              5 eager ones from copies of one scope, bit for bit; the
+              card against the port on the CPU (batch 128, 3 steps, TF32
+              off: losses and every parameter's change); 200 steps of
+              batch 128 per epoch, one epoch of warm-up and two timed:
+              host and in-graph (replays alone) img/s, kernel nodes a
+              step read from the captured graph, no capture after the
+              warm-up, the idle share of 20 traced steps; and the same
+              program under Adam(3e-3) on one repeated batch: the loss
+              after 30 steps under half the first.
+
 The last lines are the card as nvidia-smi reports it, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
 """
@@ -4939,6 +4954,239 @@ def phase_wide_deep(torch, seed, card):
     return out
 
 
+# bench.py's LeNet (bench_lenet_static): batch 128, 200 steps of seeded
+# N(0, 1) images with random labels, SGD(0.01); one epoch of warm-up,
+# then two timed epochs, the best kept
+LENET = dict(batch=128, steps=200, lr=0.01, timed=2, trace_steps=20)
+LENET_OPS = ["conv2d", "relu", "max_pool", "conv2d", "relu", "max_pool",
+             "flatten_contiguous_range", "linear", "relu", "linear", "relu",
+             "linear", "softmax_with_cross_entropy", "backward", "sgd"]
+LENET_EQ_STEPS = 5                  # captured against eager, bit for bit
+LENET_CPU = dict(batch=128, steps=3)
+# the card against the port on the CPU, TF32 off, set at ten times the
+# card's readings (H100, 700 W): losses within 1.01e-7 relative (cuDNN's
+# and the CPU's f32 sums differ in order only); each parameter's change
+# over the 3 SGD steps within 3.1e-6 of its norm, worst the first conv's
+# weight, whose gradient sums 128 x 28 x 28 products an element
+LENET_CPU_LOSS_RTOL = 1e-6
+LENET_CPU_CHANGE_RTOL = 3e-5
+# bench's SGD(0.01) takes the loss of one repeated batch of 128 only to
+# 0.86 of its start in 30 steps on the CPU, Adam(3e-3) to 0.07
+# (``static_lenet_probe.py --cpu-fit``)
+LENET_FIT = dict(steps=30, lr=3e-3)
+
+
+def _lenet_program(paddle, static, optimizer):
+    """bench_lenet_static's program, paddle read as paddle_tpu_torch;
+    ``optimizer(paddle)`` minimizes the loss.  Returns (main, startup,
+    loss)."""
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            img = static.data("img", [None, 1, 28, 28], "float32")
+            label = static.data("label", [None], "int64")
+            h = static.nn.conv2d(img, 6, 5, padding=2, act="relu")
+            h = paddle.nn.functional.max_pool2d(h, 2, 2)
+            h = static.nn.conv2d(h, 16, 5, act="relu")
+            h = paddle.nn.functional.max_pool2d(h, 2, 2)
+            h = paddle.flatten(h, start_axis=1)
+            h = static.nn.fc(h, 120, activation="relu")
+            h = static.nn.fc(h, 84, activation="relu")
+            logits = static.nn.fc(h, 10)
+            loss = paddle.nn.functional.cross_entropy(logits, label)
+            optimizer(paddle).minimize(loss)
+    finally:
+        paddle.disable_static()
+    return main, startup, loss
+
+
+def _lenet_stacks(seed, steps, batch):
+    """bench.py's epoch: N(0, 1) images, then labels, from one RNG."""
+    rng = np.random.RandomState(seed)
+    return {"img": rng.randn(steps, batch, 1, 28, 28).astype("float32"),
+            "label": rng.randint(0, 10, (steps, batch)).astype("int64")}
+
+
+def _lenet_feeds(seed, steps, batch):
+    st = _lenet_stacks(seed, steps, batch)
+    return [{k: v[i] for k, v in st.items()} for i in range(steps)]
+
+
+def _scope_copy(torch, static, src, names, device):
+    sc = static.Scope()
+    for n in names:
+        sc.set_var(n, src.find_var(n).detach().to(device).clone())
+    return sc
+
+
+def _lenet_captured_vs_eager(torch, static, main, loss, init, names, seed):
+    """``LENET_EQ_STEPS`` Executor.run steps from two copies of one scope,
+    captured and not (use_program_cache=False): every loss and every
+    persistable bit for bit."""
+    exe = static.Executor()
+    cap = _scope_copy(torch, static, init, names, "cuda")
+    eag = _scope_copy(torch, static, init, names, "cuda")
+    feeds = _lenet_feeds(seed + 10, LENET_EQ_STEPS, LENET["batch"])
+    a = [exe.run(main, feed=f, fetch_list=[loss], scope=cap)[0]
+         for f in feeds]
+    b = [exe.run(main, feed=f, fetch_list=[loss], scope=eag,
+                 use_program_cache=False)[0] for f in feeds]
+    check(len(exe.compile_events) == 1 and exe.captured_graphs(main),
+          f"static_lenet: {len(exe.compile_events)} captures in "
+          f"{LENET_EQ_STEPS} runs of one key")
+    loss_diff = [float(abs(x - y)) for x, y in zip(a, b)]
+    differ = [n for n in names
+              if not torch.equal(cap.find_var(n), eag.find_var(n))]
+    check(all(np.array_equal(x, y) for x, y in zip(a, b)) and not differ,
+          f"static_lenet: captured run differs from eager: loss diffs "
+          f"{loss_diff}, persistables {differ}")
+    return {"steps": LENET_EQ_STEPS, "replays": LENET_EQ_STEPS - 1,
+            "losses": [float(x) for x in a], "equal_bits": True,
+            "persistables": len(names)}
+
+
+def _lenet_against_cpu(torch, static, main, loss, init, names, seed):
+    """The card's Executor (captured) against the port's on the CPU from
+    one scope's copies: 3 steps at batch 128, TF32 off."""
+    feeds = _lenet_feeds(seed + 1, LENET_CPU["steps"], LENET_CPU["batch"])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sc = _scope_copy(torch, static, init, names, dev)
+        exe = static.Executor(None if dev == "cuda" else "cpu")
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=sc)[0]) for f in feeds]
+        runs[dev] = (losses, {n: sc.find_var(n).cpu().numpy()
+                              for n in main._parameters})
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    before = {n: init.find_var(n).cpu().numpy().astype(np.float64)
+              for n in main._parameters}
+    change_err = {n: _wd_change_err(runs["cuda"][1][n], runs["cpu"][1][n],
+                                    before[n]) for n in before}
+    out = {"batch": LENET_CPU["batch"], "steps": LENET_CPU["steps"],
+           "losses_card": runs["cuda"][0], "losses_cpu": runs["cpu"][0],
+           "loss_rel_err": loss_err,
+           "param_change_rel_err": {n: float(f"{e:.3g}")
+                                    for n, e in change_err.items()},
+           "limits": {"loss_rtol": LENET_CPU_LOSS_RTOL,
+                      "change_rtol": LENET_CPU_CHANGE_RTOL}}
+    log("static_lenet", check="card_against_cpu", **out)
+    check(loss_err <= LENET_CPU_LOSS_RTOL, f"static_lenet: card losses "
+          f"{runs['cuda'][0]} against the CPU's {runs['cpu'][0]}")
+    check(max(change_err.values()) <= LENET_CPU_CHANGE_RTOL,
+          f"static_lenet: card against CPU change errors {change_err}")
+    return out
+
+
+def _lenet_fit(torch, paddle, static, seed):
+    """The program under Adam(3e-3) on one repeated batch: the loss after
+    ``LENET_FIT['steps']`` steps under half the first, all finite."""
+    main, startup, loss = _lenet_program(
+        paddle, static, lambda p: p.optimizer.Adam(
+            learning_rate=LENET_FIT["lr"]))
+    exe = static.Executor()
+    sc = static.Scope()
+    exe.run(startup, scope=sc)
+    feed = _lenet_feeds(seed + 2, 1, LENET["batch"])[0]
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=sc)[0])
+              for _ in range(LENET_FIT["steps"] + 1)]
+    check(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+          f"static_lenet: Adam on one batch, losses {losses}")
+    return {"optimizer": f"Adam({LENET_FIT['lr']})",
+            "first": losses[0], "last": losses[-1],
+            "ratio": losses[-1] / losses[0], "captures": len(
+                exe.compile_events)}
+
+
+def phase_static_lenet(torch, seed, card):
+    """bench.py's LeNet through the static Program and Executor on the
+    card: the captured-against-eager and card-against-CPU checks, then
+    bench's epochs (warm-up + 2 timed), the in-graph rate, the kernel
+    nodes a step, the idle share, and the fit check."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.profiler.cuda_graph import graph_kernel_nodes
+    t_phase = time.perf_counter()
+    B, n = LENET["batch"], LENET["steps"]
+    main, startup, loss = _lenet_program(
+        paddle, static, lambda p: p.optimizer.SGD(learning_rate=LENET["lr"]))
+    ops = [op.type for op in main.global_block().ops]
+    check(ops == LENET_OPS, f"static_lenet: recorded ops {ops}")
+    names = [v.name for v in main.list_vars() if v.persistable]
+    paddle.seed(seed)
+    init = static.Scope()
+    static.Executor().run(startup, scope=init)
+    out = {"card": card, "captured_vs_eager": _lenet_captured_vs_eager(
+        torch, static, main, loss, init, names, seed)}
+    log("static_lenet", check="captured_vs_eager", **out["captured_vs_eager"])
+    out["cpu"] = _lenet_against_cpu(torch, static, main, loss, init, names,
+                                    seed)
+
+    stacks = {k: torch.from_numpy(v).cuda()
+              for k, v in _lenet_stacks(seed, n, B).items()}
+    exe = static.Executor()
+    sc = _scope_copy(torch, static, init, names, "cuda")
+
+    def epoch(data=stacks):
+        return exe.train_from_dataset(main, dataset=data, fetch_list=[loss],
+                                      scope=sc)[loss.name]
+
+    t0 = time.perf_counter()
+    losses = [epoch()]
+    warm_s = time.perf_counter() - t0
+    exe.mark_warmup()
+    best = None
+    for _ in range(LENET["timed"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(epoch())
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    captures = exe.compile_events_since_warmup()
+    check(not captures, f"static_lenet: captures after warm-up {captures}")
+    check(all(np.isfinite(x).all() and x.shape == (n,) for x in losses),
+          "static_lenet: non-finite or misshapen epoch losses")
+    graphs = exe.captured_graphs(main)
+    check(len(graphs) == 1, f"static_lenet: {len(graphs)} graphs")
+    nodes = graph_kernel_nodes(graphs[0])
+    times = []
+    for _ in range(2):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(n):
+            graphs[0].replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+    graph_s = min(times)
+    trace = {k: v[:LENET["trace_steps"]] for k, v in stacks.items()}
+    idle = _wd_idle(torch, lambda: epoch(trace))
+    kinds = {}
+    for name, _ in nodes:
+        short = re.sub(r"^_Z\d+", "", name)[:48]
+        kinds[short] = kinds.get(short, 0) + 1
+    out["train"] = {
+        "batch": B, "steps": n, "warmup_epoch_s": round(warm_s, 4),
+        "best_epoch_s": round(best, 5),
+        "host_img_per_s": round(B * n / best, 1),
+        "in_graph_step_ms": round(graph_s / n * 1e3, 5),
+        "in_graph_img_per_s": round(B * n / graph_s, 1),
+        "kernel_nodes_per_step": len(nodes),
+        # the feeds' slices into the graph's buffers, the fetch out
+        "copies_per_step_outside_graph": len(stacks) + 1,
+        "captures_after_warmup": len(captures),
+        "captures_total": len(exe.compile_events),
+        "epoch_mean_losses": [round(float(x.mean()), 6) for x in losses],
+        "trace_steps": LENET["trace_steps"], **idle,
+        "kernel_nodes_by_name": kinds}
+    log("static_lenet", check="train", **out["train"])
+    out["fit"] = _lenet_fit(torch, paddle, static, seed)
+    log("static_lenet", check="fit", **out["fit"])
+    log("static_lenet", total_s=round(time.perf_counter() - t_phase, 1))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5023,6 +5271,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     _at("wide_deep")
     phase_wide_deep(torch, args.seed, env["nvidia_smi"])
+    torch.cuda.empty_cache()
+    _at("static_lenet")
+    phase_static_lenet(torch, args.seed, env["nvidia_smi"])
     _at("records")
     # checked last, so that a failure still prints every path's trajectory
     check(resnet["losses"][-1] < resnet["losses"][0],

@@ -11,6 +11,12 @@ out]``, torch ``[out, in]``, so those are transposed; Conv2D weights
 are.  A tied parameter (BERT's MLM decoder weight is the word embedding)
 appears once in ``layer_state``, under its first name, as it does in
 ``named_parameters()``; its other names are skipped here.
+
+``load_jax_program_state`` carries a JAX static program's scope into the
+port's scope for the same program: parameters by their position in
+``Program._parameters`` (both packages name them from process-wide
+counters, so the names differ), then each optimizer op's accumulators,
+step and learning rate.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from torch import nn
 
 from .enforce import InvalidArgumentError
 
-__all__ = ["load_jax_state"]
+__all__ = ["load_jax_state", "load_jax_program_state"]
 
 
 def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
@@ -83,3 +89,72 @@ def _tied_aliases(module: nn.Module, sd) -> set:
                 "not share its storage")
         aliases.add(name)
     return aliases
+
+
+def _optimize_ops(program):
+    return [op for op in program.global_block().ops if op.prim == "@optimize"]
+
+
+def load_jax_program_state(jax_program, jax_scope, program, scope):
+    """Copy the values of ``jax_program``'s persistables into ``scope``
+    under ``program``'s names.  ``jax_scope`` maps the JAX names to
+    numpy arrays (the caller reads them out of the JAX scope; the port
+    imports no JAX).  Parameters pair by
+    position in ``_parameters``; the ``@optimize`` ops pair in order, and
+    with them their accumulators (``<param>_<state>_0``), step and
+    learning rate.  Strict: every persistable of both programs must be
+    paired and every shape must agree, or :class:`InvalidArgumentError`
+    is raised before anything is written.  A scope tensor of the same
+    shape and dtype is written in place."""
+    def value(name):
+        v = jax_scope.get(name)
+        if v is None:
+            raise InvalidArgumentError(
+                f"load_jax_program_state: {name} has no value in the JAX "
+                "scope")
+        return np.asarray(v)
+
+    if len(jax_program._parameters) != len(program._parameters):
+        raise InvalidArgumentError(
+            f"load_jax_program_state: {len(jax_program._parameters)} JAX "
+            f"parameters against {len(program._parameters)}")
+    pairs = dict(zip(jax_program._parameters, program._parameters))
+    jops, pops = _optimize_ops(jax_program), _optimize_ops(program)
+    if [op.type for op in jops] != [op.type for op in pops]:
+        raise InvalidArgumentError(
+            f"load_jax_program_state: optimizer ops {[o.type for o in jops]}"
+            f" against {[o.type for o in pops]}")
+    for jop, pop in zip(jops, pops):
+        jp, pp = jop.attrs["param_names"], pop.attrs["param_names"]
+        if [pairs.get(n) for n in jp] != list(pp):
+            raise InvalidArgumentError(
+                "load_jax_program_state: the optimizers update other "
+                f"parameters ({jp} against {pp})")
+        for sname in jop.attrs["state_names"]:
+            pairs.update({f"{a}_{sname}_0": f"{b}_{sname}_0"
+                          for a, b in zip(jp, pp)})
+        pairs.update(zip(jop.input_names[-2:], pop.input_names[-2:]))
+    theirs = {v.name for v in jax_program.list_vars() if v.persistable}
+    ours = {v.name for v in program.list_vars() if v.persistable}
+    if theirs != set(pairs) or ours != set(pairs.values()):
+        raise InvalidArgumentError(
+            "load_jax_program_state: unpaired persistables: JAX "
+            f"{sorted(theirs ^ set(pairs))}, port "
+            f"{sorted(ours ^ set(pairs.values()))}")
+    block = program.global_block()
+    staged = {}
+    for jn, pn in pairs.items():
+        src, var = value(jn), block.var(pn)
+        if list(src.shape) != [int(d) for d in var.shape]:
+            raise InvalidArgumentError(
+                f"load_jax_program_state: {jn} has shape {list(src.shape)}, "
+                f"{pn} wants {var.shape}")
+        staged[pn] = torch.from_numpy(np.array(src)).to(var.dtype)
+    for pn, t in staged.items():
+        cur = scope.find_var(pn)
+        if isinstance(cur, torch.Tensor) and cur.shape == t.shape \
+                and cur.dtype == t.dtype:
+            cur.copy_(t)
+        else:
+            scope.set_var(pn, t)
+    return scope

@@ -35,6 +35,30 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+class CPUPlace:
+    """paddle.CPUPlace parity: the host."""
+
+    def __init__(self):
+        self.device = torch.device("cpu")
+
+
+class CUDAPlace:
+    """paddle.CUDAPlace parity: card ``id``."""
+
+    def __init__(self, id=0):
+        self.device = torch.device("cuda", int(id))
+
+
+def place_device(place=None) -> torch.device:
+    """The device of a Paddle place: ``None`` (CUDA), a
+    :class:`CPUPlace`/:class:`CUDAPlace`, a ``torch.device`` or a string
+    (``"cpu"``, ``"cuda"``, ``"gpu"``, ``"gpu:1"``)."""
+    place = getattr(place, "device", place)
+    if isinstance(place, str) and place.startswith("gpu"):
+        place = "cuda" + place[3:]
+    return resolve_device(place)
+
+
 def module_device(module: torch.nn.Module) -> Optional[torch.device]:
     """The device of a module's first parameter (None if it has none)."""
     for p in module.parameters():

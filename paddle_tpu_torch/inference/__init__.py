@@ -12,8 +12,9 @@ tensors without waiting for them (a bf16 output reaches numpy as
 float32, exactly: numpy has no bfloat16).
 
 Not ported, and raising :class:`UnimplementedError` with the ROADMAP
-item: the static-program branch (``load_inference_model`` + Executor,
-A13), frozen int8 programs (``.int8`` artifacts and
+item: the static-program branch (the inference-model format of
+``save_inference_model``/``load_inference_model``, A13; the static
+Executor itself is ported), frozen int8 programs (``.int8`` artifacts and
 ``FLAGS_use_int8_inference``, A10) and the persistent compile cache
 (``set_optim_cache_dir``, A13).
 """
@@ -176,9 +177,10 @@ class Predictor:
         if prefix is None:
             raise UnimplementedError(
                 f"{d!r} holds no jit.save program: the static-program "
-                "Predictor (load_inference_model + Executor) is not "
-                "ported (ROADMAP A13); export with paddle_tpu_torch.jit."
-                "save or serving.export_for_serving")
+                "Predictor (the inference-model format of "
+                "save_inference_model/load_inference_model) is not ported "
+                "(ROADMAP A13); export with paddle_tpu_torch.jit.save or "
+                "serving.export_for_serving")
         if prefix.endswith(".int8"):
             raise _int8(prefix)
         self.device = resolve_device(config.device())

@@ -9,18 +9,27 @@ from __future__ import annotations
 import torch
 
 from ...framework.enforce import UnimplementedError
+from ...framework.primitive import Primitive
 from ...framework.random import current_generator
 
 # rows of every GEMM that batch_invariant_linear issues
 ROW_CHUNK = 128
 
 
+def _linear_fn(x, weight, bias=None):
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+_linear = Primitive("linear", _linear_fn)
+
+
 def linear(x, weight, bias=None, name=None):
     """``x @ weight + bias`` with Paddle's weight layout [in_features,
     out_features] (the ``Linear`` layer stores torch's [out, in] and
-    calls ``torch.nn.functional.linear``)."""
-    out = torch.matmul(x, weight)
-    return out if bias is None else out + bias
+    calls ``torch.nn.functional.linear``).  The registered op
+    ``linear``."""
+    return _linear(x, weight) if bias is None else _linear(x, weight, bias)
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
@@ -58,19 +67,29 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     return (1 - eps) * label + eps * prior_dist
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Upscale-in-train dropout: each element kept with probability
-    ``1 - p`` and divided by it.  The mask is drawn from ``generator``,
-    by default the active generator of ``x``'s device
-    (``framework.random.current_generator``)."""
+def _dropout_fn(x, p=0.5, training=True, generator=None):
     if not training or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    g = generator if generator is not None else current_generator(x.device)
+    g = generator
+    if g is None and not x.is_meta:      # InferShape draws nothing
+        g = current_generator(x.device)
     keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
+
+
+_dropout = Primitive("dropout", _dropout_fn, random=True)
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """Upscale-in-train dropout: each element kept with probability
+    ``1 - p`` and divided by it.  The mask is drawn from ``generator``,
+    by default the active generator of ``x``'s device
+    (``framework.random.current_generator``).  The registered op
+    ``dropout``, marked random."""
+    return _dropout(x, p=p, training=training, generator=generator)
 
 
 def pad_rows(x, rows=ROW_CHUNK):

@@ -21,6 +21,7 @@ import math
 import torch.nn.functional as F
 
 from ...framework.flags import fused_conv_enabled
+from ...framework.primitive import Primitive
 from ...ops.kernels import fused_conv
 from . import activation
 from .norm import _running_update, batch_norm
@@ -58,10 +59,8 @@ def _pads(padding, hw, kernel, stride, dilation):
     return tuple((int(p[0]), int(p[1])) for p in padding)
 
 
-def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW", name=None):
-    """2-d convolution of NCHW or NHWC ``x`` with an OIHW ``weight``; the
-    output keeps x's layout and dtype."""
+def _conv2d_fn(x, weight, bias=None, stride=1, padding=0, dilation=1,
+               groups=1, data_format="NCHW"):
     channel_last = data_format in _CHANNEL_LAST
     xc = x.permute(0, 3, 1, 2) if channel_last else x
     stride, dilation = _pair(stride), _pair(dilation)
@@ -77,6 +76,18 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     if bias is not None:
         out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
     return out.permute(0, 2, 3, 1) if channel_last else out
+
+
+_conv2d = Primitive("conv2d", _conv2d_fn)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """2-d convolution of NCHW or NHWC ``x`` with an OIHW ``weight``; the
+    output keeps x's layout and dtype.  The registered op ``conv2d``."""
+    args = (x, weight) if bias is None else (x, weight, bias)
+    return _conv2d(*args, stride=stride, padding=padding, dilation=dilation,
+                   groups=groups, data_format=data_format)
 
 
 def _int(v):

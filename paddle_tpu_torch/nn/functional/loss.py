@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ...framework.enforce import UnimplementedError
+from ...framework.primitive import Primitive
 
 
 def _reduce(loss, reduction):
@@ -34,12 +35,18 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     over the rows.
 
     Class weights, another axis and ``use_softmax=False`` are not
-    ported."""
+    ported.  The registered op ``softmax_with_cross_entropy``."""
     if weight is not None or axis not in (-1, input.ndim - 1) \
             or not use_softmax:
         raise UnimplementedError(
             "cross_entropy is ported over the last axis with the softmax "
             "and without class weights (ROADMAP A9)")
+    return _softmax_ce(input, label, ignore_index=ignore_index,
+                       reduction=reduction, soft_label=soft_label)
+
+
+def _softmax_ce_fn(input, label, ignore_index=-100, reduction="mean",
+                   soft_label=False):
     logp = torch.log_softmax(input.float(), dim=-1)
     if soft_label:
         return _reduce(-(label.float() * logp).sum(-1), reduction)
@@ -55,3 +62,6 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction == "sum":
         return nll.sum()
     return nll[..., None] if squeeze else nll
+
+
+_softmax_ce = Primitive("softmax_with_cross_entropy", _softmax_ce_fn)

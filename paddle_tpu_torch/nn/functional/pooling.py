@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...framework.primitive import Primitive
+
 _CHANNEL_LAST = ("NHWC", "NWC", "NDHWC", "NLC")
 
 
@@ -21,17 +23,27 @@ def _pair(v):
                                                              for x in v)
 
 
+def _max_pool_fn(x, kernel=(1, 1), stride=(1, 1), padding=(0, 0),
+                 channel_last=False):
+    xc = x.permute(0, 3, 1, 2) if channel_last else x
+    out = F.max_pool2d(xc, kernel, stride, padding)
+    return out.permute(0, 2, 3, 1) if channel_last else out
+
+
+_max_pool = Primitive("max_pool", _max_pool_fn)
+
+
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
+    """The registered op ``max_pool``."""
     if return_mask or ceil_mode:
         raise NotImplementedError(
             "max_pool2d(return_mask=True / ceil_mode=True) is not ported")
-    channel_last = data_format in _CHANNEL_LAST
-    xc = x.permute(0, 3, 1, 2) if channel_last else x
     kernel = _pair(kernel_size)
-    stride = kernel if stride is None else _pair(stride)
-    out = F.max_pool2d(xc, kernel, stride, _pair(padding))
-    return out.permute(0, 2, 3, 1) if channel_last else out
+    return _max_pool(x, kernel=kernel,
+                     stride=kernel if stride is None else _pair(stride),
+                     padding=_pair(padding),
+                     channel_last=data_format in _CHANNEL_LAST)
 
 
 def _adaptive_axis(x, ax, osz):

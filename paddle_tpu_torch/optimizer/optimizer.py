@@ -1,4 +1,4 @@
-"""Optimizers: the base class, Momentum, Adam and AdamW.
+"""Optimizers: the base class, SGD, Momentum, Adam and AdamW.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``.  ``step()`` updates
 every parameter that has a gradient, in place, with f32 moments; the
@@ -18,7 +18,19 @@ for names that ``apply_decay_param_fun`` and ``state_dict`` can use (a
 ``Momentum`` is the JAX package's ``_momentum_rule`` with an f32
 velocity: ``v = mu v + g``, then ``p = p - lr v``, or with Nesterov
 ``p = p - lr (g + mu v)``; its ``weight_decay`` is the coupled L2 term
-added to the gradient.
+added to the gradient.  ``SGD`` is ``_sgd_rule``: ``p = p - lr g``.
+
+In static mode ``minimize(loss)`` appends the program's backward op
+(``static/backward.py``) and one ``@optimize`` op, as the JAX package's
+``_minimize_static`` does.  Its accumulators (``<param>_<state>_0``,
+f32 zeros), its step (int32) and its learning rate (f32) are
+persistable vars, set by the startup program and seeded into the
+global scope at once; the learning rate is
+refreshed before each run (``Program._pre_run_hooks``), so a scheduler
+reaches a captured program as data.  The update (``make_update_fn``)
+writes into the scope's parameter, accumulator and step tensors in
+place, with the step and the learning rate read as device scalars: the
+same rules, in the JAX package's order of operations.
 """
 from __future__ import annotations
 
@@ -27,6 +39,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..framework import core
+from ..framework.enforce import UnimplementedError
+from ..nn.initializer import Constant
 from .lr import LRScheduler
 
 
@@ -74,7 +89,8 @@ def adam_update(params, grads, m, v, lr, beta1, beta2, eps, t, wd=0.0):
 
 def momentum_update(params, grads, velocity, lr, mu, nesterov=False):
     """One momentum update over lists of tensors, in place on ``params``
-    (any float dtype, updated through f32) and the f32 ``velocity``."""
+    (any float dtype, updated through f32) and the f32 ``velocity``;
+    ``lr`` a float or a 0-d tensor."""
     grads = [g.float() for g in grads]
     pf = [p if p.dtype == torch.float32 else p.float() for p in params]
     torch._foreach_mul_(velocity, _f32(mu))
@@ -84,10 +100,69 @@ def momentum_update(params, grads, velocity, lr, mu, nesterov=False):
         torch._foreach_add_(step, grads)
     else:
         step = velocity
-    torch._foreach_sub_(pf, torch._foreach_mul(step, _f32(lr)))
+    torch._foreach_sub_(pf, torch._foreach_mul(
+        step, lr if isinstance(lr, torch.Tensor) else _f32(lr)))
     for p, f in zip(params, pf):
         if f is not p:
             p.copy_(f)
+
+
+def sgd_update(params, grads, lr):
+    """``p -= lr * g`` over lists, in place; ``lr`` a float or a 0-d
+    tensor."""
+    torch._foreach_sub_(params, torch._foreach_mul(
+        [g.to(p.dtype) for p, g in zip(params, grads)], lr))
+
+
+def _adam_static(params, grads, m, v, lr, t, beta1, beta2, eps, wd=0.0):
+    """``adam_update`` with the learning rate and the f32 step ``t`` as
+    device scalars, in the order of ``_adam_rule`` (lr (m / bc1) /
+    (sqrt(v / bc2) + eps)) and ``_adamw_rule`` (lr ((m / bc1) / (sqrt(v
+    / bc2) + eps) + wd p))."""
+    one = np.float32(1.0)
+    b1, b2 = np.float32(beta1), np.float32(beta2)
+    bc1 = 1.0 - torch.pow(float(b1), t)
+    bc2 = 1.0 - torch.pow(float(b2), t)
+    grads = [g.float() for g in grads]
+    torch._foreach_mul_(m, float(b1))
+    torch._foreach_add_(m, grads, alpha=float(one - b1))
+    torch._foreach_mul_(v, float(b2))
+    torch._foreach_addcmul_(v, grads, grads, value=float(one - b2))
+    denom = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, _f32(eps))
+    upd = torch._foreach_div(m, bc1)
+    if wd:
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(upd, params, alpha=_f32(wd))
+        torch._foreach_mul_(upd, lr)
+    else:
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_div_(upd, denom)
+    torch._foreach_sub_(params, upd)
+
+
+def make_update_fn(opt, param_names):
+    """The ``@optimize`` op's function over (params, grads, accumulators
+    by state, step, lr): the step advances, then ``opt._static_update``
+    updates every tensor in place; returns the written tensors."""
+    def update_fn(*arrs):
+        k = len(param_names)
+        params, grads = list(arrs[:k]), list(arrs[k:2 * k])
+        state = {s: list(arrs[2 * k + i * k:2 * k + (i + 1) * k])
+                 for i, s in enumerate(opt._state_names)}
+        step, lr = arrs[-2], arrs[-1]
+        step.add_(1)
+        if opt._grad_clip is not None:
+            grads = [g for _, g in opt._grad_clip(list(zip(params, grads)))]
+        if opt._weight_decay:
+            # coupled L2: grad += wd * param
+            grads = [g + opt._weight_decay * p.to(g.dtype)
+                     for p, g in zip(params, grads)]
+        opt._static_update(param_names, params, grads, state, step, lr)
+        return tuple(params + [t for s in opt._state_names
+                               for t in state[s]] + [step])
+    return update_fn
 
 
 class Optimizer:
@@ -152,6 +227,68 @@ class Optimizer:
     def _apply(self, pg):
         raise NotImplementedError
 
+    def _static_update(self, names, params, grads, state, step, lr):
+        raise UnimplementedError(
+            f"{type(self).__name__} has no static update")
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """In static mode, append the backward op and the ``@optimize``
+        op to the loss's program; returns (None, [(param, grad)]).
+        Eagerly, backward (when the loss has a graph) and ``step()``."""
+        if core.in_static_mode() and not isinstance(loss, torch.Tensor):
+            return self._minimize_static(loss, parameters, no_grad_set)
+        if loss.requires_grad:
+            loss.backward()
+        self.step()
+        return None, [(p, p.grad) for _, p in self._params]
+
+    def _minimize_static(self, loss, parameters=None, no_grad_set=None):
+        from ..static.backward import append_backward
+        from ..static.executor import global_scope
+        from ..static.program import Operator
+        block = loss.block
+        program = block.program
+        pgs = append_backward(loss, parameter_list=parameters,
+                              no_grad_set=no_grad_set)
+        param_names = [p.name for p, _ in pgs]
+        scope = global_scope()
+
+        def persistable(name, shape, dtype, value):
+            # set by the startup program, as in the reference, and seeded
+            # into the global scope now, as in the JAX package, so that a
+            # program of eager parameters runs without a startup
+            if not block.has_var(name):
+                var = block.create_var(name=name, shape=shape, dtype=dtype,
+                                       persistable=True)
+                block.append_init(var, Constant(value))
+                scope.set_var(name, Constant(value)(shape, dtype))
+
+        acc_names = []
+        for sname in self._state_names:
+            for p, _ in pgs:
+                acc_names.append(f"{p.name}_{sname}_0")
+                persistable(acc_names[-1], p.shape, "float32", 0.0)
+        step_name = f"@optimizer_step_{id(self)}"
+        lr_name = f"@optimizer_lr_{id(self)}"
+        persistable(step_name, [], "int32", 0)
+        persistable(lr_name, [], "float32", _f32(self.get_lr()))
+        program._pre_run_hooks.append(
+            lambda sc, opt=self, n=lr_name: sc.find_var(n).fill_(
+                _f32(opt.get_lr())))
+        op = Operator(block, prim="@optimize",
+                      inputs=param_names + [g.name for _, g in pgs]
+                      + acc_names + [step_name, lr_name],
+                      outputs=param_names + acc_names + [step_name],
+                      attrs={"optimizer": type(self).__name__,
+                             "param_names": list(param_names),
+                             "state_names": list(self._state_names)},
+                      fn=make_update_fn(self, param_names),
+                      type_name=type(self).__name__.lower())
+        block.ops.append(op)
+        program._version += 1
+        return None, pgs
+
     def clear_grad(self, set_to_zero=False):
         for _, p in self._params:
             if set_to_zero and p.grad is not None:
@@ -185,6 +322,21 @@ class Optimizer:
     set_dict = set_state_dict
 
 
+class SGD(Optimizer):
+    """``p = p - lr g`` (``g`` with the coupled L2 term when
+    ``weight_decay`` is set)."""
+
+    def _apply(self, pg):
+        grads = [g for _, _, g in pg]
+        if self._weight_decay:
+            grads = [g + self._weight_decay * p.to(g.dtype)
+                     for (_, p, _), g in zip(pg, grads)]
+        sgd_update([p for _, p, _ in pg], grads, _f32(self.get_lr()))
+
+    def _static_update(self, names, params, grads, state, step, lr):
+        sgd_update(params, grads, lr)
+
+
 class Momentum(Optimizer):
     _state_names = ["velocity"]
 
@@ -204,6 +356,10 @@ class Momentum(Optimizer):
         momentum_update([p for _, p, _ in pg], grads,
                         [self._state("velocity", n, p) for n, p, _ in pg],
                         self.get_lr(), self._momentum, self._nesterov)
+
+    def _static_update(self, names, params, grads, state, step, lr):
+        momentum_update(params, grads, state["velocity"], lr,
+                        self._momentum, self._nesterov)
 
 
 class Adam(Optimizer):
@@ -231,6 +387,10 @@ class Adam(Optimizer):
                   for n, p, g in pg]
         self._update(pg, 0.0)
 
+    def _static_update(self, names, params, grads, state, step, lr):
+        _adam_static(params, grads, state["moment1"], state["moment2"], lr,
+                     step.float(), self._beta1, self._beta2, self._eps)
+
 
 class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -247,3 +407,14 @@ class AdamW(Adam):
         fn = self._apply_decay_fn or (lambda n: True)
         self._update([x for x in pg if fn(x[0])], self._wd)
         self._update([x for x in pg if not fn(x[0])], 0.0)
+
+    def _static_update(self, names, params, grads, state, step, lr):
+        fn = self._apply_decay_fn or (lambda n: True)
+        for decay in (True, False):
+            idx = [i for i, n in enumerate(names) if bool(fn(n)) == decay]
+            if idx:
+                pick = lambda xs: [xs[i] for i in idx]  # noqa: E731
+                _adam_static(pick(params), pick(grads),
+                             pick(state["moment1"]), pick(state["moment2"]),
+                             lr, step.float(), self._beta1, self._beta2,
+                             self._eps, self._wd if decay else 0.0)

@@ -81,6 +81,14 @@ def test_package_imports_with_jax_unimportable():
             "from paddle_tpu_torch.distributed import InMemoryDataset\n"
             "from paddle_tpu_torch.rec.wide_deep import (WideDeepTrainer, "
             "load_jax_wide_deep)\n"
+            "import paddle_tpu_torch.static.executor, "
+            "paddle_tpu_torch.static.backward, paddle_tpu_torch.static.io\n"
+            "from paddle_tpu_torch.static import (Executor, Program, data, "
+            "nn, program_guard)\n"
+            "from paddle_tpu_torch.framework.bridge import "
+            "load_jax_program_state\n"
+            "from paddle_tpu_torch.optimizer import SGD\n"
+            "from paddle_tpu_torch import enable_static, flatten, matmul\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -218,3 +226,14 @@ def test_wide_deep_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert t._w_ar["rows"].device.type == "cpu"
     loss = t.step_async(*synthetic_ctr_batch(8, vocab=1_000, seed=0))
     assert loss.device.type == "cpu" and np.isfinite(float(loss))
+
+
+def test_static_executor_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for place in (None, "gpu", "cuda", paddle.CUDAPlace(0)):
+        with pytest.raises(PreconditionNotMetError):
+            static.Executor(place)
+    for place in ("cpu", paddle.CPUPlace()):
+        assert static.Executor(place).device.type == "cpu"

@@ -16,6 +16,8 @@ of each (batch, head) row's largest |out| against the plain version run
 on the bf16 tensors themselves, which rounds at the kernel's points
 (chip_smoke.py states the reasons).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1272,3 +1274,108 @@ def test_wide_deep_async_push_grads_equal_sync_push(cuda):
     for x, y in zip(ta, tb):
         np.testing.assert_array_equal(x, y)
     assert all(torch.equal(x, y) for x, y in zip(wa, wb))
+
+
+# -- the static graph: one captured CUDA graph per program and feed signature
+
+@contextlib.contextmanager
+def _static_program():
+    """Static mode with a fresh Scope and Program pair, all restored."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.scope_guard(static.Scope()), \
+                static.program_guard(main, startup):
+            yield paddle, static, main, startup
+    finally:
+        paddle.disable_static()
+
+
+def _static_lenet(paddle, static, lr=0.01):
+    img = static.data("img", [None, 1, 28, 28], "float32")
+    label = static.data("label", [None], "int64")
+    h = static.nn.conv2d(img, 6, 5, padding=2, act="relu")
+    h = paddle.nn.functional.max_pool2d(h, 2, 2)
+    h = static.nn.conv2d(h, 16, 5, act="relu")
+    h = paddle.nn.functional.max_pool2d(h, 2, 2)
+    h = paddle.flatten(h, start_axis=1)
+    h = static.nn.fc(h, 120, activation="relu")
+    h = static.nn.fc(h, 84, activation="relu")
+    loss = paddle.nn.functional.cross_entropy(static.nn.fc(h, 10), label)
+    paddle.optimizer.SGD(learning_rate=lr).minimize(loss)
+    return loss
+
+
+def _lenet_feed(seed, batch=32):
+    rng = np.random.RandomState(seed)
+    return {"img": rng.randn(batch, 1, 28, 28).astype("float32"),
+            "label": rng.randint(0, 10, (batch,)).astype("int64")}
+
+
+def test_static_captured_run_equals_eager_run(cuda):
+    """Five runs of LeNet from two copies of one scope, captured (one
+    capture, four replays) and eager: every loss and persistable bit for
+    bit."""
+    with _static_program() as (paddle, static, main, startup):
+        loss = _static_lenet(paddle, static)
+        exe = static.Executor()
+        exe.run(startup)
+        names = [v.name for v in main.list_vars() if v.persistable]
+        other = static.Scope()
+        for n in names:
+            other.set_var(n, static.global_scope().find_var(n).clone())
+        feeds = [_lenet_feed(k) for k in range(5)]
+        a = [exe.run(main, feed=f, fetch_list=[loss])[0] for f in feeds]
+        b = [exe.run(main, feed=f, fetch_list=[loss], scope=other,
+                     use_program_cache=False)[0] for f in feeds]
+        assert len(exe.compile_events) == 1
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        for n in names:
+            assert torch.equal(static.global_scope().find_var(n),
+                               other.find_var(n)), n
+
+
+def test_static_steady_state_makes_no_capture(cuda):
+    """Runs and train_from_dataset of one key replay one graph; a new
+    program version recaptures once, on its second run."""
+    from paddle_tpu_torch.profiler.cuda_graph import graph_kernel_nodes
+    with _static_program() as (paddle, static, main, startup):
+        loss = _static_lenet(paddle, static)
+        exe = static.Executor()
+        exe.run(startup)
+        for k in range(2):
+            exe.run(main, feed=_lenet_feed(k), fetch_list=[loss])
+        exe.mark_warmup()
+        for k in range(3):
+            exe.run(main, feed=_lenet_feed(k), fetch_list=[loss])
+        stacks = {n: np.stack([_lenet_feed(k)[n] for k in range(5)])
+                  for n in ("img", "label")}
+        out = exe.train_from_dataset(main, dataset=stacks,
+                                     fetch_list=[loss], chunk_steps=2)
+        assert out[loss.name].shape == (5,)
+        assert exe.compile_events_since_warmup() == []
+        graphs = exe.captured_graphs(main)
+        assert len(graphs) == 1 and len(graph_kernel_nodes(graphs[0])) > 20
+        main._version += 1
+        exe.run(main, feed=_lenet_feed(0), fetch_list=[loss])
+        assert exe.compile_events_since_warmup() == []
+        exe.run(main, feed=_lenet_feed(1), fetch_list=[loss])
+        assert len(exe.compile_events_since_warmup()) == 1
+
+
+def test_static_program_with_a_random_op_is_not_captured(cuda):
+    from paddle_tpu_torch.framework.enforce import UnimplementedError
+    with _static_program() as (paddle, static, main, startup):
+        x = static.data("x", [None, 8], "float32")
+        y = paddle.nn.functional.dropout(static.nn.fc(x, 4), p=0.5)
+        exe = static.Executor()
+        exe.run(startup)
+        feed = {"x": np.ones((2, 8), "float32")}
+        with pytest.raises(UnimplementedError, match="A13"):
+            exe.run(main, feed=feed, fetch_list=[y])
+        out = exe.run(main, feed=feed, fetch_list=[y],
+                      use_program_cache=False)[0]
+        assert out.shape == (2, 4) and exe.compile_events == []

@@ -5,6 +5,8 @@ runs on the CPU as its own tests run it (Pallas kernels in interpret
 mode), and the port runs with ``device="cpu"``, where every kernel
 wrapper computes its plain PyTorch version.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -123,3 +125,93 @@ def linear_weight_names(module):
     return {f"{n}.weight" for n, m in module.named_modules()
             if isinstance(m, torch.nn.Linear)}
 
+
+
+# -- static graph (tests/test_torch_static*.py) --------------------------------
+
+@contextlib.contextmanager
+def static_modes():
+    """Both packages in static mode, each under a fresh Scope and a fresh
+    (main, startup) Program pair entered with program_guard; every piece
+    of that process-global state is restored on the way out.  Yields
+    ``(jax_side, port_side)``, each ``(paddle, static, main, startup)``."""
+    import paddle_tpu.static as jstatic
+
+    import paddle_tpu_torch as tpaddle
+    import paddle_tpu_torch.static as tstatic
+    from paddle_tpu.framework import core as jcore
+    from paddle_tpu_torch.framework import core as tcore
+    prev = (jcore.in_static_mode(), tcore.in_static_mode())
+    sides = []
+    try:
+        with contextlib.ExitStack() as stack:
+            for pkg, static, core in ((paddle, jstatic, jcore),
+                                      (tpaddle, tstatic, tcore)):
+                core.enable_static()
+                main, startup = static.Program(), static.Program()
+                stack.enter_context(static.scope_guard(static.Scope()))
+                stack.enter_context(static.program_guard(main, startup))
+                sides.append((pkg, static, main, startup))
+            yield tuple(sides)
+    finally:
+        for on, core in zip(prev, (jcore, tcore)):
+            (core.enable_static if on else core.disable_static)()
+
+
+def either_static():
+    """True if either package is in static mode."""
+    from paddle_tpu.framework import core as jcore
+    from paddle_tpu_torch.framework import core as tcore
+    return jcore.in_static_mode() or tcore.in_static_mode()
+
+
+def lenet(paddle, static, optimizer=None):
+    """bench.py's LeNet program (``bench_lenet_static``) for either
+    package; ``optimizer(paddle)`` makes the optimizer to minimize with.
+    Returns (loss, logits)."""
+    img = static.data("img", [None, 1, 28, 28], "float32")
+    label = static.data("label", [None], "int64")
+    h = static.nn.conv2d(img, 6, 5, padding=2, act="relu")
+    h = paddle.nn.functional.max_pool2d(h, 2, 2)
+    h = static.nn.conv2d(h, 16, 5, act="relu")
+    h = paddle.nn.functional.max_pool2d(h, 2, 2)
+    h = paddle.flatten(h, start_axis=1)
+    h = static.nn.fc(h, 120, activation="relu")
+    h = static.nn.fc(h, 84, activation="relu")
+    logits = static.nn.fc(h, 10)
+    loss = paddle.nn.functional.cross_entropy(logits, label)
+    if optimizer is not None:
+        optimizer(paddle).minimize(loss)
+    return loss, logits
+
+
+def mlp(paddle, static, optimizer=None):
+    """The MLP program of tests/test_static.py (``_mlp_program``).
+    Returns (loss, logits)."""
+    x = static.data("x", [None, 16], "float32")
+    y = static.data("y", [None], "int64")
+    h = static.nn.fc(x, 32, activation="relu")
+    logits = static.nn.fc(h, 4)
+    loss = paddle.nn.functional.cross_entropy(logits, y)
+    if optimizer is not None:
+        optimizer(paddle).minimize(loss)
+    return loss, logits
+
+
+def static_pair_state(jax_side, port_side):
+    """Carry the JAX program's scope into the port's (after running the
+    port's startup on the CPU)."""
+    from paddle_tpu_torch.framework.bridge import load_jax_program_state
+    jm, tm = jax_side[2], port_side[2]
+    port_side[1].Executor("cpu").run(port_side[3])
+    names = [v.name for v in jm.list_vars() if v.persistable]
+    load_jax_program_state(jm, dict(zip(names, scope_values(jax_side[1],
+                                                            names))),
+                           tm, port_side[1].global_scope())
+
+
+def scope_values(static, names):
+    """numpy copies of the global scope's values of ``names``."""
+    vals = [static.global_scope().find_var(n) for n in names]
+    return [np.array(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+            for v in vals]

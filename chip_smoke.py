@@ -120,7 +120,8 @@ without printing a result:
               captured step equal to the eager one (both caches, e,
               cur, finished, ncommit, n), a
               self-draft pass accepting every proposal, and the
-              speculative against the plain slot server in turns;
+              speculative against the plain slot server, one turn
+              each;
       beam    generate(beam_size=4), batch 2, 64-token prompts, 32 new
               tokens: scores non-increasing, tokens in range, B3 launched
               12 x 32 times, each path's score equal to the sum of its
@@ -139,25 +140,33 @@ without printing a result:
               N=16, S=64, H=64, no mask): checked in f32 and bf16 (in
               bf16 also twice: the same bits), and timed in bf16 beside
               the bound, the plain versions and SDPA;
-  8b. dense   BERT-base (BertConfig.base(), random weights from --seed)
-              cast to bf16 by amp.decorate(level="O2") behind bench.py's
-              bf16 serving wrapper, served through the dense path:
-              export_for_serving (torch.export; one program, or one a
-              bucket) -> Server(workers=2).register -> start (one CUDA
-              graph a bucket, 1..16) -> submit, under bench_serving's
-              traffic (8 clients, 1-4 rows a request, 8 s, seeded ids):
-              QPS, p50 and p99 (against the JAX package's 250 ms SLO),
-              batch rows, padding, warm-up time; no capture after
-              warm-up; every graph and worker reads the loaded program's
-              one set of weights; the program holds one B1 operator node
-              a layer and no other attention; every result has its rows
-              and equals the eager decorated model on its rows at the
-              bucket it rode within 2^-6 of max(1, max |ref|) (the bit-
-              equal ones are counted); every bucket's graph holds 12 B1
-              forward kernel nodes and no library attention node (read
-              back through libcuda), every batch was one replay,
-              and 20 replays of the bucket-16 graph traced with
-              torch.profiler show those nodes run; B1 at the served
+  8b. dense   bench_serving's bf16 models (bench.py:824-880), each
+              built through the port's public API as bench.py builds it
+              (vision LeNet; bench.py's Block(nn.Layer) of Conv2D(bias_attr
+              =False), BatchNorm2D and ReLU twice with the residual add, at
+              ch 64, hw 56; BertModel(BertConfig.base())), random weights
+              from --seed, cast to bf16 by paddle.amp.decorate(level="O2")
+              behind bench.py's _BF16Serve(nn.Layer), served one after
+              another through the dense path: export_for_serving
+              (torch.export; one program, or one a bucket) ->
+              Server(workers=2).register -> start (one CUDA graph a
+              bucket, 1..16) -> submit, under bench_serving's traffic (8
+              clients, 1-4 rows a request, 8 s, seeded inputs): QPS, p50
+              and p99 (against the JAX package's SLOs, 50, 100 and 250
+              ms), batch rows, padding, export and warm-up time; no
+              capture after warm-up; every graph and worker reads the
+              loaded program's one set of weights; BERT's program holds
+              one B1 operator node a layer and no other attention, LeNet's
+              and the block's none, and their runs launch no hand-written
+              kernel; every result has its rows and equals the eager
+              decorated model on its rows at the bucket it rode within
+              2^-6 of max(1, max |ref|) (the bit-equal ones are counted);
+              every bucket's graph holds 12 B1 forward kernel nodes for
+              BERT, none for the others, and no library attention node
+              (read back through libcuda, with each bucket-16 graph's
+              kernel nodes and replay time), every batch was one replay,
+              and 20 replays of BERT's bucket-16 graph traced with
+              torch.profiler show its B1 nodes run; B1 at the served
               shape (B=16, N=12, S=128, H=64, bf16, no bias) checked and
               timed beside its plain version, SDPA and its bound;
   9. train    BERT-base pretraining (random weights from --seed, f32
@@ -2617,9 +2626,11 @@ def _spec_slots(torch, model, draft, seed):
           f"spec slots, self-draft: {sl}")
     out["self_draft"] = {k: sl[k] for k in ("spec_accepted", "spec_proposed",
                                             "spec_acceptance_rate", "steps")}
-    # the speculative slot server against the plain one, in turns
+    # the speculative slot server against the plain one, one turn each
+    # (a third turn, spec again, was cut to pay for the dense phase's
+    # LeNet and residual block)
     turns = {"spec": [], "plain": []}
-    for kind in ("spec", "plain", "spec"):
+    for kind in ("spec", "plain"):
         turns[kind].append(_slot_turn(
             torch, model, reqs, draft=draft if kind == "spec" else None))
     out["turns"] = turns
@@ -3037,46 +3048,81 @@ def phase_fa_kernels(torch, seed):
     return worst, timings[True], s2s
 
 
-# -- phase 8b: dense serving of BERT-base (B1 in an exported program) ------
+# -- phase 8b: dense serving of bench_serving's bf16 models -----------------
 
-# bench.py's bench_serving "bert_bf16" cell (bench.py:830-833, 858-867,
-# 764-781, 692-728): BertConfig.base(), bf16 weights (amp.decorate O2),
-# one int32 input [None, 128], buckets 1..16, two workers; 8 clients
-# sending 1-4 rows a request for 8 s, seeded ids; p99 against the JAX
-# package's 250 ms SLO (bench.py:688)
-DENSE = dict(seq=128, buckets=(1, 2, 4, 8, 16), workers=2, clients=8,
-             max_rows=4, seconds=8.0, slo_p99_ms=250.0)
-DENSE_REPLAYS = 20      # bucket-16 replays traced for the kernel count
+# bench.py's bench_serving on the accelerator (bench.py:824-880, 764-781,
+# 692-728): lenet (vision LeNet, [None, 1, 28, 28] f32), resnet_block
+# (bench.py's Block at ch 64, hw 56: [None, 64, 56, 56] f32) and bert
+# (BertModel(BertConfig.base()), [None, 128] int32 ids), each cast to
+# bf16 by amp.decorate(level="O2") behind bench.py's _BF16Serve; buckets
+# 1..16, two workers; 8 clients sending 1-4 rows a request for 8 s,
+# seeded inputs; p99 against the JAX package's SLOs (bench.py:688)
+DENSE = dict(seq=128, ch=64, hw=56, buckets=(1, 2, 4, 8, 16), workers=2,
+             clients=8, max_rows=4, seconds=8.0)
+DENSE_MODELS = ("lenet", "resnet_block", "bert")
+DENSE_SLO_P99_MS = {"lenet": 50.0, "resnet_block": 100.0, "bert": 250.0}
+DENSE_REPLAYS = 20      # bucket-16 replays traced (BERT) or timed
 # a served result against the eager decorated model on the same padded
-# bucket: both run B1 and the same GEMMs at the same shapes, so they
-# should agree bit for bit; the limit is B1's bf16 one (FA_RTOL) as a
-# share of max(1, max |ref|) of each output
+# bucket: both run the same kernels (B1, cuDNN's convolutions, the same
+# GEMMs) at the same shapes, so they should agree bit for bit; the limit
+# is B1's bf16 one (FA_RTOL) as a share of max(1, max |ref|) of each
+# output
 DENSE_RTOL = 2.0 ** -6
 
 
-def _bf16_serve(torch, inner):
-    """bench.py's _BF16Serve (bench.py:769-781): float inputs cast to
-    bf16, outputs to f32, int ids passed through."""
-    class BF16Serve(torch.nn.Module):
+def bench_block(ch, **kw):
+    """bench.py's Block (bench.py:843-856) on the port's ``nn``: a 3x3
+    conv without bias, BatchNorm2D and ReLU, twice, the input added
+    before the second ReLU.  ``kw`` (``device=``) goes to every conv and
+    BN; without it they land on CUDA, as bench.py's do on its chip."""
+    from paddle_tpu_torch import nn
+
+    class Block(nn.Layer):
+        """One residual conv-BN-ReLU pair (the fused-conv stage)."""
+
+        def __init__(self):
+            super().__init__()
+            self.c1 = nn.Conv2D(ch, ch, 3, padding=1, bias_attr=False, **kw)
+            self.b1 = nn.BatchNorm2D(ch, **kw)
+            self.c2 = nn.Conv2D(ch, ch, 3, padding=1, bias_attr=False, **kw)
+            self.b2 = nn.BatchNorm2D(ch, **kw)
+            self.relu = nn.ReLU()
+
+        def forward(self, x):
+            h = self.relu(self.b1(self.c1(x)))
+            return self.relu(self.b2(self.c2(h)) + x)
+
+    return Block()
+
+
+def bf16_serve(inner):
+    """bench.py's _BF16Serve (bench.py:769-781) on the port, in eval
+    mode: float inputs cast to bf16 and outputs to f32 by
+    ``paddle.cast``, int ids passed through."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    class _BF16Serve(nn.Layer):
         def __init__(self):
             super().__init__()
             self.inner = inner
 
         def forward(self, *xs):
-            xs = [x.to(torch.bfloat16) if x.is_floating_point() else x
-                  for x in xs]
+            xs = [paddle.cast(x, "bfloat16")
+                  if "float" in str(x.dtype) else x for x in xs]
             out = self.inner(*xs)
             if isinstance(out, (list, tuple)):
-                return [o.float() for o in out]
-            return out.float()
-    return BF16Serve().eval()
+                return [paddle.cast(o, "float32") for o in out]
+            return paddle.cast(out, "float32")
+
+    model = _BF16Serve()
+    model.eval()
+    return model
 
 
-def _bert_serving(torch, seed):
+def _bert_base(torch, seed):
     """BertModel(BertConfig.base()) on the card with random weights from
-    ``seed`` (BertForPretraining.init_weights' scheme), cast to bf16 by
-    amp.decorate(level="O2"), behind the bf16 serving wrapper."""
-    from paddle_tpu_torch.amp import decorate
+    ``seed`` (BertForPretraining.init_weights' scheme)."""
     from paddle_tpu_torch.text.models import BertConfig
     from paddle_tpu_torch.text.models.bert import BertModel
     cfg = BertConfig.base()
@@ -3091,17 +3137,58 @@ def _bert_serving(torch, seed):
             elif isinstance(m, torch.nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-    decorate(models=model, level="O2", dtype="bfloat16")
-    check(all(p.dtype == torch.bfloat16 for p in model.parameters()),
-          "amp.decorate O2 left a parameter outside bf16")
-    return _bf16_serve(torch, model.eval()), cfg
+    return model, cfg
 
 
-def _dense_traffic(srv, vocab, seed):
+def _dense_model(torch, name, seed):
+    """bench_serving's model ``name`` built through the port's public API
+    as bench.py builds it (LeNet(), Block, BertModel), random weights
+    from ``seed``, cast to bf16 by paddle.amp.decorate(level="O2")
+    behind bf16_serve: (served model, input spec, each output's shape a
+    row, vocabulary or None, B1 operators the program must hold)."""
+    import paddle_tpu_torch as paddle
+    paddle.seed(seed)
+    torch.manual_seed(seed)
+    vocab, b1 = None, 0
+    if name == "lenet":
+        inner = paddle.vision.models.LeNet()
+        spec, shapes = ([None, 1, 28, 28], "float32"), [(10,)]
+    elif name == "resnet_block":
+        c, hw = DENSE["ch"], DENSE["hw"]
+        inner = bench_block(c)
+        spec, shapes = ([None, c, hw, hw], "float32"), [(c, hw, hw)]
+    else:
+        inner, cfg = _bert_base(torch, seed)
+        spec = ([None, DENSE["seq"]], "int32")
+        shapes = [(DENSE["seq"], cfg.hidden_size), (cfg.hidden_size,)]
+        vocab, b1 = cfg.vocab_size, cfg.num_hidden_layers
+    check(all(p.device.type == "cuda" for p in inner.parameters())
+          and all(b.device.type == "cuda" for b in inner.buffers()),
+          f"dense {name}: a parameter or buffer is off the card")
+    paddle.amp.decorate(models=inner, level="O2", dtype="bfloat16")
+    check(all(p.dtype == torch.bfloat16 for p in inner.parameters())
+          and all(b.dtype in (torch.float32, torch.int64, torch.int32)
+                  for b in inner.buffers()),
+          f"dense {name}: amp.decorate O2 left a parameter outside bf16 "
+          "or cast a buffer")
+    return bf16_serve(inner), spec, shapes, vocab, b1
+
+
+def _dense_input(rng, spec, rows, vocab):
+    """bench.py's request maker (_serving_traffic's gen): ids drawn
+    below the vocabulary, floats N(0, 1)."""
+    shape, dtype = spec
+    s = (rows,) + tuple(shape[1:])
+    if np.issubdtype(np.dtype(dtype), np.integer):
+        return rng.randint(0, vocab or 100, s).astype(dtype)
+    return rng.randn(*s).astype(dtype)
+
+
+def _dense_traffic(srv, name, spec, vocab, seed):
     """bench.py's _serving_traffic: DENSE["clients"] closed-loop clients,
-    each sending requests of 1..max_rows rows of seeded ids for
-    DENSE["seconds"]; returns (requests, errors), a request being (ids,
-    outputs, bucket, batch rows)."""
+    each sending requests of 1..max_rows rows for DENSE["seconds"];
+    returns (requests, errors), a request being (input, outputs, bucket,
+    batch rows)."""
     import threading
     done, errors = [], []
     lock = threading.Lock()
@@ -3112,15 +3199,14 @@ def _dense_traffic(srv, vocab, seed):
         mine = []
         while time.perf_counter() < deadline:
             rows = int(rng.randint(1, DENSE["max_rows"] + 1))
-            ids = rng.randint(0, vocab, (rows, DENSE["seq"])).astype(
-                np.int32)
+            x = _dense_input(rng, spec, rows, vocab)
             try:
-                fut = srv.submit("bert", [ids])
+                fut = srv.submit(name, [x])
                 out = fut.result(timeout=60)
             except Exception as e:   # noqa: BLE001 — recorded per client
                 errors.append(f"client{i}: {type(e).__name__}: {e}")
                 return
-            mine.append((ids, out, fut.bucket, fut.batch_rows))
+            mine.append((x, out, fut.bucket, fut.batch_rows))
         with lock:
             done.extend(mine)
 
@@ -3133,39 +3219,46 @@ def _dense_traffic(srv, vocab, seed):
     return done, errors
 
 
-def _reference_graph(torch, model, b):
+def _outputs(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _reference_graph(torch, model, b, spec):
     """The eager decorated model's forward at bucket ``b`` captured as one
     CUDA graph: (input buffer, outputs, graph).  Replaying it runs the
-    eager forward's kernels on the buffer's ids; ``_dense_check`` holds
+    eager forward's kernels on the buffer's rows; ``_dense_check`` holds
     its first replay a bucket to the eager forward bit for bit."""
-    ids = torch.zeros((b, DENSE["seq"]), dtype=torch.int32, device="cuda")
+    shape, dtype = spec
+    x = torch.zeros((b,) + tuple(shape[1:]), device="cuda",
+                    dtype=getattr(torch, dtype))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.no_grad(), torch.cuda.stream(side):
         for _ in range(2):
-            model(ids)
+            model(x)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.no_grad(), torch.cuda.graph(graph):
-        outs = model(ids)
-    return ids, outs, graph
+        outs = _outputs(model(x))
+    return x, outs, graph
 
 
-def _dense_check(torch, model, done):
+def _dense_check(torch, name, model, done, spec, shapes):
     """Every served result against the eager decorated model on its own
     rows at the bucket it rode (requests of one bucket packed together,
     zero rows padding the last pass), compared on the card with one read
-    back at the end: rows exact, and each output within DENSE_RTOL of
-    max(1, max |ref|) over the request's rows.  The reference passes
-    replay the eager forward captured once a bucket, whose first pass
-    must equal the eager forward bit for bit (the eager passes took ~17 s
-    of the phase).  Returns (worst share, requests bit-equal)."""
+    back at the end: rows exact (no padding in a result), and each output
+    within DENSE_RTOL of max(1, max |ref|) over the request's rows.  The
+    reference passes replay the eager forward captured once a bucket,
+    whose first pass must equal the eager forward bit for bit (the eager
+    passes took ~17 s of BERT's phase).  Returns (worst share, requests
+    bit-equal)."""
     passes = []          # (requests, per output: [rows] diff, [rows] |ref|)
     by_bucket = {}
     for r in done:
         by_bucket.setdefault(r[2], []).append(r)
     for b, reqs in sorted(by_bucket.items()):
-        ids_buf, ref, graph = _reference_graph(torch, model, b)
+        buf, ref, graph = _reference_graph(torch, model, b, spec)
         first = True
         i = 0
         while i < len(reqs):
@@ -3174,46 +3267,46 @@ def _dense_check(torch, model, done):
                 group.append(reqs[i])
                 rows += reqs[i][0].shape[0]
                 i += 1
-            for g_ids, out, _, _ in group:
-                n = g_ids.shape[0]
-                check(len(out) == 2 and out[0].shape == (n, DENSE["seq"],
-                                                         768)
-                      and out[1].shape == (n, 768),
-                      f"dense: a {n}-row request got "
+            for x, out, _, _ in group:
+                n = x.shape[0]
+                check([o.shape for o in out] == [(n,) + s for s in shapes],
+                      f"dense {name}: a {n}-row request got "
                       f"{[o.shape for o in out]}")
-            ids = np.zeros((b, DENSE["seq"]), np.int32)
-            ids[:rows] = np.concatenate([g[0] for g in group])
-            ids_buf.copy_(torch.from_numpy(ids))
+            xs = np.zeros(tuple(buf.shape), group[0][0].dtype)
+            xs[:rows] = np.concatenate([g[0] for g in group])
+            buf.copy_(torch.from_numpy(xs))
             graph.replay()
             if first:
                 with torch.no_grad():
-                    eager = model(ids_buf)
+                    eager = _outputs(model(buf))
                 check(all(torch.equal(x, y) for x, y in zip(ref, eager)),
-                      f"dense: the captured reference at bucket {b} differs "
-                      "from the eager forward")
+                      f"dense {name}: the captured reference at bucket {b} "
+                      "differs from the eager forward")
                 first = False
             stats = []
             for k, want in enumerate(ref):
-                got = torch.from_numpy(np.concatenate(
-                    [g[1][k] for g in group])).cuda().reshape(rows, -1)
                 want = want[:rows].reshape(rows, -1)
+                got = torch.from_numpy(np.concatenate(
+                    [g[1][k] for g in group])).to(want.device).reshape(
+                        rows, -1)
                 # a non-finite served value makes its row's diff NaN
                 stats.append(((got - want).abs().amax(1),
                               want.abs().amax(1)))
             passes.append((group, stats))
+    nout = len(shapes)
     diffs = torch.stack([torch.cat([st[k][0] for _, st in passes])
-                         for k in range(2)]).cpu().numpy()
+                         for k in range(nout)]).cpu().numpy()
     scales = torch.stack([torch.cat([st[k][1] for _, st in passes])
-                          for k in range(2)]).cpu().numpy()
+                          for k in range(nout)]).cpu().numpy()
     worst, equal, off = 0.0, 0, 0
     for group, _ in passes:
         for g in group:
             n = g[0].shape[0]
             err = max(float(diffs[k, off:off + n].max()
                             / max(1.0, float(scales[k, off:off + n].max())))
-                      for k in range(2))
-            check(err <= DENSE_RTOL, f"dense: served != eager at bucket "
-                  f"{g[2]}: {err} of max(1, max |ref|)")
+                      for k in range(nout))
+            check(err <= DENSE_RTOL, f"dense {name}: served != eager at "
+                  f"bucket {g[2]}: {err} of max(1, max |ref|)")
             worst = max(worst, err)
             equal += err == 0.0
             off += n
@@ -3225,18 +3318,19 @@ def _dense_check(torch, model, done):
 LIBRARY_ATTENTION = re.compile(r"flash|fmha|sdpa|attention|efficient", re.I)
 
 
-def _dense_graphs(rt, layers):
-    """Each bucket graph's kernel nodes (``_graph_nodes``): 12 B1 forward
-    nodes (tc::fwd_tc_kernel) and no library attention node, so a replay
-    launches B1 12 times.  Returns {bucket: kernel nodes}."""
+def _dense_graphs(name, rt, layers):
+    """Each bucket graph's kernel nodes (``_graph_nodes``): ``layers`` B1
+    forward nodes (tc::fwd_tc_kernel; 12 for BERT-base, none for LeNet
+    and the block) and no library attention node, so a replay launches
+    B1 ``layers`` times.  Returns {bucket: kernel nodes}."""
     out = {}
     for b, ex in sorted(rt.executables.items()):
         nodes, kernels = _graph_nodes(ex.graph, "fwd_tc_kernel")
         library = sorted({n for n, _ in kernels if LIBRARY_ATTENTION.search(n)
                           and "fwd_tc_kernel" not in n})
         check(sum(nodes.values()) == layers and not library,
-              f"dense: bucket {b}'s graph holds B1 nodes {nodes} (want "
-              f"{layers}) and library attention nodes {library}")
+              f"dense {name}: bucket {b}'s graph holds B1 nodes {nodes} "
+              f"(want {layers}) and library attention nodes {library}")
         out[b] = {"b1_nodes": nodes, "kernel_nodes": len(kernels)}
     return out
 
@@ -3274,6 +3368,22 @@ def _dense_trace(torch, graph, nodes):
                             for e in top]}
 
 
+def _replay_ms(torch, graph):
+    """Device ms of one replay of a captured bucket graph: DENSE_REPLAYS
+    replays between two CUDA events, best of 3."""
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(DENSE_REPLAYS):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / DENSE_REPLAYS)
+    return min(times)
+
+
 def _dense_b1_timing(torch, seed, worst):
     """B1 at the served shape (B = 16, N = 12, S = 128, H = 64, bf16, no
     bias, the model's strided views): checked against its plain version,
@@ -3303,92 +3413,109 @@ def _dense_b1_timing(torch, seed, worst):
             "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops}
 
 
-def phase_dense(torch, seed, card):
-    """BERT-base bf16 served through the dense path: export_for_serving
-    -> Server.register -> start (one CUDA graph a bucket) -> submit, under
-    bench_serving's traffic."""
-    from paddle_tpu_torch import serving
+def _port_launches(reset=False):
+    """Every hand-written kernel wrapper's launch count (B1/B2, B3/B4,
+    B5/B6, B7), reset to 0 with ``reset``."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    model, cfg = _bert_serving(torch, seed)
-    layers = cfg.num_hidden_layers
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    return {**_fa_counts(fa, reset), **fd.launch_counts(reset),
+            **_fused_counts(reset)}
+
+
+def _dense_serve(torch, name, seed, card):
+    """One bench_serving model in bf16 through the dense path:
+    export_for_serving -> Server.register -> start (one CUDA graph a
+    bucket) -> submit, under bench_serving's traffic."""
+    from paddle_tpu_torch import serving
+    model, spec, shapes, vocab, b1 = _dense_model(torch, name, seed)
     out_dir = os.path.join(ROOT, "build", "dense")
     shutil.rmtree(out_dir, ignore_errors=True)
-    prefix = os.path.join(out_dir, "bert")
-    _fa_counts(fa, reset=True)          # the path's run: counts from 0
+    prefix = os.path.join(out_dir, name)
+    _port_launches(reset=True)          # the path's run: counts from 0
     t0 = time.perf_counter()
-    manifest = serving.export_for_serving(
-        model, prefix, [([None, DENSE["seq"]], "int32")],
-        buckets=DENSE["buckets"])
+    manifest = serving.export_for_serving(model, prefix, [spec],
+                                          buckets=DENSE["buckets"])
     export_s = time.perf_counter() - t0
     srv = serving.Server(serving.ServingConfig(workers=DENSE["workers"],
                                                buckets=DENSE["buckets"]))
-    srv.register("bert", prefix, buckets=DENSE["buckets"])
+    srv.register(name, prefix, buckets=DENSE["buckets"])
     try:
         t0 = time.perf_counter()
         srv.start()
         warmup_s = time.perf_counter() - t0
-        rt = srv._models["bert"]
+        rt = srv._models[name]
         check(all(rt.executables[b].captured for b in DENSE["buckets"])
               and [e["bucket"] for e in rt.events]
               == list(DENSE["buckets"]),
-              f"dense: warm-up captured {rt.events}")
+              f"dense {name}: warm-up captured {rt.events}")
         # one parameter set: every graph's and every worker's predictor
         # reads the loaded program's tensors
         ptrs = {p.data_ptr() for p in rt.primary._translated._params}
         held = {p.data_ptr() for ex in rt.executables.values()
                 for p in ex.predictor._translated._params}
         held |= {p.data_ptr() for w in srv._workers
-                 for c in w.clones["bert"].values()
+                 for c in w.clones[name].values()
                  for p in c._translated._params}
         check(manifest["mode"] != "poly" or held == ptrs,
-              "dense: a graph or a worker holds its own copy of the weights")
+              f"dense {name}: a graph or a worker holds its own copy of "
+              "the weights")
         program = rt.primary._translated.program()
         nodes = [str(n.target) for n in program.graph.nodes
                  if n.op == "call_function"]
         b1_nodes = sum("flash_attention_fwd" in n for n in nodes)
-        check(b1_nodes == layers and not any(
+        check(b1_nodes == b1 and not any(
             "scaled_dot_product" in n or "einsum" in n for n in nodes),
-              f"dense: the exported program holds {b1_nodes} B1 nodes")
-        done, errors = _dense_traffic(srv, cfg.vocab_size, seed)
-        st = srv.stats("bert")
-        launches = _fa_counts(fa)
+              f"dense {name}: the exported program holds {b1_nodes} B1 "
+              f"nodes (want {b1})")
+        done, errors = _dense_traffic(srv, name, spec, vocab, seed)
+        st = srv.stats(name)
+        launches = _port_launches()
         steady = srv.compile_events_since_warmup()
-        check(not errors, f"dense: client errors {errors[:4]}")
+        check(not errors, f"dense {name}: client errors {errors[:4]}")
         check(not steady and st["steady_compiles"] == 0,
-              f"dense: steady-state captures {steady}")
+              f"dense {name}: steady-state captures {steady}")
         srv.assert_zero_steady_state_recompiles()
         check(st["completed"] == len(done) and len(done) > 0,
-              f"dense: {st['completed']} completed, {len(done)} returned")
+              f"dense {name}: {st['completed']} completed, {len(done)} "
+              "returned")
         # every batch was one replay of its bucket's graph, and each
-        # graph launches B1 once a layer
+        # graph launches B1 once a layer (none for LeNet and the block,
+        # whose wrappers launched nothing either)
         replays = {b: ex.replays for b, ex in rt.executables.items()}
         check(sum(replays.values()) == st["batches"],
-              f"dense: {replays} replays for {st['batches']} batches")
-        graphs = _dense_graphs(rt, layers)
+              f"dense {name}: {replays} replays for {st['batches']} "
+              "batches")
+        check(b1 or not any(launches.values()),
+              f"dense {name}: kernel wrappers launched {launches}")
+        graphs = _dense_graphs(name, rt, b1)
         top = DENSE["buckets"][-1]
-        trace = _dense_trace(torch, rt.executables[top].graph,
-                             graphs[top]["b1_nodes"])
+        graph = rt.executables[top].graph
+        trace = _dense_trace(torch, graph, graphs[top]["b1_nodes"]) \
+            if b1 else {}
+        replay_ms = _replay_ms(torch, graph)
     finally:
         srv.stop()
     t0 = time.perf_counter()
-    worst_err, equal = _dense_check(torch, model, done)
+    worst_err, equal = _dense_check(torch, name, model, done, spec, shapes)
     check_s = time.perf_counter() - t0
     shutil.rmtree(out_dir, ignore_errors=True)
-    out = {"config": "BertConfig.base() bf16 (amp O2)",
+    slo = DENSE_SLO_P99_MS[name]
+    out = {"model": name, "input": spec, "config": "bf16 (amp O2)",
            "export_mode": manifest["mode"],
            "export_s": round(export_s, 3), "warmup_s": round(warmup_s, 3),
            "buckets": list(DENSE["buckets"]), "workers": DENSE["workers"],
            "clients": DENSE["clients"], "seconds": DENSE["seconds"],
            "qps": st["qps"], "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
-           "slo_p99_ms": DENSE["slo_p99_ms"],
-           "slo_met": st["p99_ms"] <= DENSE["slo_p99_ms"],
+           "slo_p99_ms": slo, "slo_met": st["p99_ms"] <= slo,
            "completed": st["completed"], "rows": sum(
                r[0].shape[0] for r in done),
            "avg_batch_rows": st["avg_batch_rows"],
            "padding_ratio": st["padding_ratio"],
-           "steady_captures": len(steady),
+           "steady_captures": len(steady), "op_nodes": len(nodes),
            "b1_op_nodes": b1_nodes, "launches": launches,
            "batches": st["batches"], "replays_by_bucket": replays,
+           "kernel_nodes_per_replay": graphs[top]["kernel_nodes"],
+           "replay_ms": round(replay_ms, 4),
            "b1_kernels_per_replay": sum(graphs[top]["b1_nodes"].values()),
            "b1_launches_replayed": sum(
                sum(graphs[b]["b1_nodes"].values()) * n
@@ -3398,6 +3525,20 @@ def phase_dense(torch, seed, card):
            "served_equal_eager": f"{equal}/{len(done)}",
            "check_s": round(check_s, 1), "card": card, **trace}
     log("dense", **out)
+    return out
+
+
+def phase_dense(torch, seed, card):
+    """bench_serving's bf16 models (lenet, resnet_block, bert) served one
+    after another through the dense path; {model: record}."""
+    out = {}
+    for name in DENSE_MODELS:
+        out[name] = _dense_serve(torch, name, seed, card)
+        torch.cuda.empty_cache()
+    log("dense", summary={n: {k: r[k] for k in (
+        "export_mode", "export_s", "warmup_s", "qps", "p50_ms", "p99_ms",
+        "slo_met", "kernel_nodes_per_replay", "replay_ms")}
+        for n, r in out.items()}, card=card)
     return out
 
 
@@ -5299,9 +5440,9 @@ def main(argv=None):
         "name": "flash_attention_fwd_served", "route": "cuda",
         "source": fa_src,
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:67",
-        "launches": dense["launches"]["flash_attention_fwd"],
-        "launches_per_replay": dense["b1_kernels_per_replay"],
-        "launches_replayed": dense["b1_launches_replayed"],
+        "launches": dense["bert"]["launches"]["flash_attention_fwd"],
+        "launches_per_replay": dense["bert"]["b1_kernels_per_replay"],
+        "launches_replayed": dense["bert"]["b1_launches_replayed"],
         "max_abs_err": fa_worst["fwd_served"], "ms": dense_t["ms"],
         "plain_ms": dense_t["plain_ms"], "bound_ms": dense_t["bound_ms"],
         "bound_by": dense_t["bound_by"],

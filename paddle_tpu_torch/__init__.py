@@ -8,6 +8,12 @@ run through hand-written CUDA kernels (``ops/kernels``, sources in
 ``csrc/``) built with ``nvcc`` on first use.  ``enable_static()`` turns
 on static-graph mode (``static``): registered ops then record into a
 ``Program`` that an ``Executor`` runs.
+
+``import paddle_tpu_torch as paddle`` reaches the subpackages of the JAX
+package's ``_SUBPACKAGES`` that are ported (``paddle.amp``,
+``paddle.jit``, ``paddle.serving``, ``paddle.vision``...), so code
+written against ``paddle`` (``paddle.amp.decorate``, ``paddle.cast``,
+``nn.Layer``) runs unchanged.
 """
 from . import framework  # noqa: F401
 from .framework.core import (disable_static, enable_static,  # noqa: F401
@@ -19,3 +25,6 @@ from .ops.manipulation import cast, flatten, reshape  # noqa: F401
 from .ops.math import (add, divide, matmul, mean, multiply,  # noqa: F401
                        subtract, sum)
 from . import nn, optimizer, static  # noqa: F401,E402
+from . import (amp, distributed, inference, jit,  # noqa: F401,E402
+               profiler, serving, text, vision)
+from .nn.layer.layers import ParamAttr  # noqa: F401,E402

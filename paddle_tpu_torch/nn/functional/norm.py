@@ -39,13 +39,29 @@ def _bn_shape(x, ch):
     return shape
 
 
+def _affine(out, gamma, beta, shape):
+    """``out · gamma + beta`` in f32; a missing ``gamma`` or ``beta``
+    (``weight_attr``/``bias_attr=False``) leaves its term out, as a
+    weight of ones and a bias of zeros would.  JAX's ``_bn_eval`` reads
+    both and raises on a missing one."""
+    if gamma is not None:
+        out = out * gamma.float().reshape(shape)
+    if beta is not None:
+        out = out + beta.float().reshape(shape)
+    return out
+
+
 def _bn_train(x, gamma, beta, rmean, rvar, momentum, eps, data_format):
     ch, axes = _bn_axes(x.ndim, data_format)
     c = x.shape[ch]
     if ch == x.ndim - 1 and fused_bn_enabled() \
             and (x.numel() // max(c, 1)) % 8 == 0:
-        y, mean, var = fused_bn_act(x.reshape(-1, c), gamma.float(),
-                                    beta.float(), float(eps), False)
+        g = x.new_ones(c, dtype=torch.float32) if gamma is None \
+            else gamma.float()
+        b = x.new_zeros(c, dtype=torch.float32) if beta is None \
+            else beta.float()
+        y, mean, var = fused_bn_act(x.reshape(-1, c), g, b, float(eps),
+                                    False)
         _running_update(rmean, rvar, mean.detach(), var.detach(), momentum)
         return y.reshape(x.shape)
     xf = x.float()
@@ -53,8 +69,8 @@ def _bn_train(x, gamma, beta, rmean, rvar, momentum, eps, data_format):
     var = xf.var(axes, correction=0)
     shape = _bn_shape(x, ch)
     inv = torch.rsqrt(var + eps)
-    out = (xf - mean.reshape(shape)) * inv.reshape(shape)
-    out = out * gamma.float().reshape(shape) + beta.float().reshape(shape)
+    out = _affine((xf - mean.reshape(shape)) * inv.reshape(shape), gamma,
+                  beta, shape)
     _running_update(rmean, rvar, mean.detach(), var.detach(), momentum)
     return out.to(x.dtype)
 
@@ -64,8 +80,7 @@ def _bn_eval(x, gamma, beta, rmean, rvar, eps, data_format):
     shape = _bn_shape(x, ch)
     inv = torch.rsqrt(rvar.float() + eps)
     out = (x.float() - rmean.float().reshape(shape)) * inv.reshape(shape)
-    out = out * gamma.float().reshape(shape) + beta.float().reshape(shape)
-    return out.to(x.dtype)
+    return _affine(out, gamma, beta, shape).to(x.dtype)
 
 
 def batch_norm(x, running_mean, running_var, weight, bias, training=False,

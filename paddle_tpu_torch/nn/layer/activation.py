@@ -4,12 +4,11 @@ Counterpart of ``paddle_tpu/nn/layer/activation.py``.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 

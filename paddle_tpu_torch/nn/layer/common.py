@@ -8,6 +8,13 @@ weights, zero bias) and subclass ``torch.nn.Linear``/``Embedding``, so
 is.  Both land on CUDA unless the caller passes ``device="cpu"``.
 Parameter attributes (``weight_attr``/``bias_attr``) and sparse
 embedding gradients are not ported.
+
+All three are ``Layer``s (``isinstance(layer, nn.Layer)`` holds, as in
+the JAX package): ``Linear(nn.Linear, Layer)`` takes torch's storage and
+forward from ``torch.nn.Linear``, first in its bases, and Paddle's names
+(``state_dict`` order, ``sublayers``, ``astype``...) from ``Layer``,
+whose ``__init__`` ``torch.nn.Linear`` reaches through ``super()``;
+``Embedding`` likewise.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from torch import nn
 from ...framework.enforce import UnimplementedError
 from ...framework.place import DeviceLike, resolve_device
 from ..functional.common import dropout, embedding
+from .layers import Layer
 
 
 def no_param_attrs(layer, **attrs):
@@ -28,7 +36,7 @@ def no_param_attrs(layer, **attrs):
             "take the layer's default initializer (ROADMAP A9)")
 
 
-class Linear(nn.Linear):
+class Linear(nn.Linear, Layer):
     """``y = x W^T + b`` with ``W`` [out_features, in_features]."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
@@ -44,7 +52,7 @@ class Linear(nn.Linear):
         nn.init.zeros_(self.bias)
 
 
-class Embedding(nn.Embedding):
+class Embedding(nn.Embedding, Layer):
     """A lookup table [num_embeddings, embedding_dim]; ids equal to
     ``padding_idx`` look up zeros (``nn.functional.embedding``)."""
 
@@ -68,7 +76,7 @@ class Embedding(nn.Embedding):
         return embedding(x, self.weight, padding_idx=self.padding_idx)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Upscale-in-train dropout drawing from the active generator of its
     input's device (``framework.random``), so a ``TrainStep`` owns the
     masks of its steps."""

@@ -4,13 +4,12 @@ Counterpart of ``paddle_tpu/nn/layer/loss.py``.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from ..functional.loss import cross_entropy
 from ...framework.enforce import UnimplementedError
+from .layers import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     """Cross entropy over the last axis with hard or soft labels
     (``nn.functional.cross_entropy``); class weights, another axis and
     ``use_softmax=False`` are not ported."""

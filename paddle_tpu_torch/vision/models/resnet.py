@@ -106,9 +106,9 @@ class BottleneckBlock(nn.Module):
 class ResNet(nn.Module):
     """ResNet of ``depth`` in {18, 34, 50, 101, 152}.  ``device`` defaults
     to CUDA and raises without a card; pass ``device="cpu"`` to run on
-    the host.  Conv weights are Kaiming normal from the device's default
-    generator (``torch.manual_seed`` seeds it); ``init_weights`` redraws
-    them from a given generator."""
+    the host.  Conv weights are Kaiming normal from the port's generator
+    of the device (``paddle_tpu_torch.seed`` seeds it); ``init_weights``
+    redraws them from a given generator."""
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW", *,

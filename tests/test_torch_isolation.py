@@ -89,6 +89,8 @@ def test_package_imports_with_jax_unimportable():
             "load_jax_program_state\n"
             "from paddle_tpu_torch.optimizer import SGD\n"
             "from paddle_tpu_torch import enable_static, flatten, matmul\n"
+            "from paddle_tpu_torch.nn import Layer, LayerList, Sequential\n"
+            "from paddle_tpu_torch.vision.models import LeNet\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -180,6 +182,7 @@ def test_dense_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
 
 def test_seq2seq_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.models import LeNet
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda **kw: nn.Transformer(64, 4, 1, 1, 128, **kw),
                  lambda **kw: nn.TransformerDecoderLayer(16, 2, 32, **kw),
@@ -188,7 +191,10 @@ def test_seq2seq_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
                                                     **kw),
                  lambda **kw: nn.Linear(8, 4, **kw),
                  lambda **kw: nn.Embedding(16, 8, **kw),
-                 lambda **kw: nn.LayerNorm(8, **kw)):
+                 lambda **kw: nn.LayerNorm(8, **kw),
+                 lambda **kw: nn.Conv2D(2, 3, 3, **kw),
+                 lambda **kw: nn.BatchNorm2D(3, **kw),
+                 lambda **kw: LeNet(**kw)):
         with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
             make()
         with pytest.raises(PreconditionNotMetError):

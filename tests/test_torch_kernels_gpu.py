@@ -1173,6 +1173,50 @@ def test_captured_bucket_replay_equals_the_eager_loaded_program(cuda,
         srv.stop()
 
 
+def test_lenet_bucket_replay_equals_the_eager_loaded_program(cuda,
+                                                             tmp_path):
+    """bench_serving's lenet in bf16 (LeNet(), amp.decorate O2 behind the
+    _BF16Serve layer): the bucket-16 captured graph returns the eager
+    loaded program's bits; no kernel wrapper launched in the export, the
+    captures or the replays (so no graph holds a hand-written kernel),
+    and start() captures each bucket once, none after."""
+    import paddle_tpu_torch as paddle
+    from chip_smoke import _port_launches, bf16_serve
+    from paddle_tpu_torch import serving
+    paddle.seed(0)
+    inner = paddle.vision.models.LeNet()
+    assert all(p.device.type == "cuda" for p in inner.parameters())
+    paddle.amp.decorate(models=inner, level="O2", dtype="bfloat16")
+    prefix = str(tmp_path / "lenet")
+    buckets = (1, 2, 4, 8, 16)
+    _port_launches(reset=True)
+    serving.export_for_serving(bf16_serve(inner), prefix,
+                               [([None, 1, 28, 28], "float32")],
+                               buckets=buckets)
+    srv = serving.Server(serving.ServingConfig(workers=2))
+    srv.register("lenet", prefix, buckets=buckets)
+    srv.start()
+    try:
+        rt = srv._models["lenet"]
+        assert [e["bucket"] for e in rt.events] == list(buckets)
+        ex = rt.executables[16]
+        assert ex.captured
+        assert graph_kernel_nodes(ex.graph)
+        x = np.random.RandomState(1).randn(16, 1, 28, 28).astype(np.float32)
+        r0 = ex.replays
+        got = ex.dispatch([x]).fence()
+        assert ex.replays == r0 + 1
+        want = rt.predictors[16]._translated(torch.from_numpy(x))
+        assert got[0].dtype == np.float32 and got[0].shape == (16, 10)
+        assert np.array_equal(got[0], want.cpu().numpy())
+        out = srv.run("lenet", [x[:3]])
+        assert out[0].shape == (3, 10)
+        assert not any(_port_launches().values())
+        srv.assert_zero_steady_state_recompiles()
+    finally:
+        srv.stop()
+
+
 # -- Wide&Deep on the card (no hand-written kernel: its step is gathers,
 # GEMMs, the loss, Adam and scatters) ----------------------------------------
 

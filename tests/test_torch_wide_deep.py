@@ -73,7 +73,13 @@ def test_forward_with_carried_state_matches_jax():
 def test_trainer_matches_jax(mode):
     """Six steps of each mode against JAX's WideDeepTrainer in the same
     mode: per-step losses, the dense parameters after the run and the
-    flushed deep and wide table rows."""
+    flushed deep and wide table rows.  In async mode each trainer's
+    pushes drain on its own thread and the next pull may read a row
+    before or after its update ("one step stale"), so each package's
+    losses would follow its thread's timing: a drain 50 ms late moves
+    them by 11% of their value.  Both trainers are flushed after every
+    step there, so both read the same rows; the pushes still go through
+    the drain threads."""
     kw = {"cache": dict(device_cache=True),
           "pullpush": dict(device_cache=False),
           "async": dict(async_push=True)}[mode]
@@ -86,6 +92,9 @@ def test_trainer_matches_jax(mode):
     for ids, dense, label in _batches():
         jl.append(jt.step(ids, dense, label))
         pl.append(pt.step(ids, dense, label))
+        if mode == "async":
+            jt.flush()
+            pt.flush()
     jt.flush()
     pt.flush()
     pt.close()

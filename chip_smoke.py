@@ -34,9 +34,8 @@ without printing a result:
               with the bf16 KV cache and once with the int8 one: every
               served row equals a batch-1 generate() of its prompt, and
               each kernel's launch count equals layers x decode steps x
-              batches; the bf16 traffic once more with plain F.linear
-              GEMMs, for the served tok/s of each (the profile phase
-              times them in turns); then one 8-prompt request per wave at short
+              batches (the profile phase times the row-invariant GEMMs
+              against plain ones); then one 8-prompt request per wave at short
               sequence buckets (16, 32), whose caches of 32 and 48
               columns are shorter than the kernel's 64-column span:
               launch counts again, and every row equals generate() of the
@@ -63,9 +62,7 @@ without printing a result:
               line's launches are the serving phase's);
               the captured step equals the eager step bit for bit at C =
               768 (planes, logits, tokens, finished), and both are timed
-              (host and device ms, idle share, kernels a step); the slot server
-              against the run-to-completion server on the same trace in
-              turns (slot, run to completion, slot: tok/s, TTFT); a
+              (host and device ms, idle share, kernels a step); a
               shared-prefix pass (6 requests, 256-token prefix, 48-token
               suffix) with the prefix cache on and off: hit tokens > 0,
               rows as above (near ties at most 8.5%), TTFT;
@@ -118,10 +115,8 @@ without printing a result:
               warm-up, a graph of 32 decode-kernel nodes (4 x 5 draft +
               12 verify) and 20 traced replays that run them, the
               captured step equal to the eager one (both caches, e,
-              cur, finished, ncommit, n), a
-              self-draft pass accepting every proposal, and the
-              speculative against the plain slot server, one turn
-              each;
+              cur, finished, ncommit, n), and a
+              self-draft pass accepting every proposal;
       beam    generate(beam_size=4), batch 2, 64-token prompts, 32 new
               tokens: scores non-increasing, tokens in range, B3 launched
               12 x 32 times, each path's score equal to the sum of its
@@ -140,7 +135,8 @@ without printing a result:
               N=16, S=64, H=64, no mask): checked in f32 and bf16 (in
               bf16 also twice: the same bits), and timed in bf16 beside
               the bound, the plain versions and SDPA;
-  8b. dense   bench_serving's bf16 models (bench.py:824-880), each
+  8b. dense   bench_serving's six variants (bench.py:824-880): the bf16
+              models first, each
               built through the port's public API as bench.py builds it
               (vision LeNet; bench.py's Block(nn.Layer) of Conv2D(bias_attr
               =False), BatchNorm2D and ReLU twice with the residual add, at
@@ -166,9 +162,24 @@ without printing a result:
               (read back through libcuda, with each bucket-16 graph's
               kernel nodes and replay time), every batch was one replay,
               and 20 replays of BERT's bucket-16 graph traced with
-              torch.profiler show its B1 nodes run; B1 at the served
-              shape (B=16, N=12, S=128, H=64, bf16, no bias) checked and
-              timed beside its plain version, SDPA and its bound;
+              torch.profiler show its B1 nodes run; then the int8
+              variants (bench.py:743-760): each model in f32 (random
+              weights from --seed), PostTrainingQuantization over 4
+              batches of one RandomState(0) bucket-1 input,
+              FLAGS_use_int8_inference on, export_for_serving(int8=True)
+              (frozen: one aten._int_mm, cuBLASLt's i8 x i8 -> i32 GEMM,
+              per site, 5, 2 and 73, and no float GEMM or convolution in
+              the program; BERT's float layers stay f32, so its program
+              holds 12 f32 B1 nodes), the same traffic and checks, every
+              result equal to the eager frozen model bit for bit; every
+              site's int8 product on the card, on the codes of forwards
+              at buckets 1 and 16, equal to the exact product on the
+              CPU; LeNet's and the block's frozen output on the card
+              against the same frozen state on the CPU (within
+              INT8_CARD_CPU_RTOL); max |int8 - f32| / max |f32| reported;
+              B1 at the served shape (B=16, N=12, S=128, H=64, no bias)
+              in bf16 and in f32 checked and timed beside its plain
+              version, SDPA and its bound;
   9. train    BERT-base pretraining (random weights from --seed, f32
               masters, bf16 compute, AdamW, dropout 0.1) at batch 64 x
               seq 128 with a ragged attention mask: 3 + 20 steps, seq/s,
@@ -797,14 +808,12 @@ def _traffic(seed, vocab, n=REQUESTS, lo=16, hi=SEQ_BUCKETS[0]):
     return [rng.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def _serve_once(torch, model, prompts, kv, grid, one_request=False,
-                check_rows=True):
+def _serve_once(torch, model, prompts, kv, grid, one_request=False):
     """Serve ``prompts``, one request each (or all in one request), and
     hold the launch counts and the served rows.  Every served row must
     equal its prompt's batch-1 generate() (the serving path's GEMMs are
     row-invariant: batch_invariant_linear); the rows of one request, which
-    form one batch, must also equal generate() of that batch.  Without
-    ``check_rows`` (a timing run) only the counts are held."""
+    form one batch, must also equal generate() of that batch."""
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.ops.kernels import flash_decode as fd
@@ -848,9 +857,6 @@ def _serve_once(torch, model, prompts, kv, grid, one_request=False,
           f"kv={kv}: stats {st}")
     tokens = int(st["tokens"])
     tok_s = round(tokens / (t_end - t_ready), 1)
-    if not check_rows:
-        return {"decode_tok_per_s": tok_s, "serve_s": round(t_end - t_ready,
-                                                            3)}
     oracle = Generator(model, seq_buckets=grid["seq_buckets"],
                        max_len=grid["max_len"])
     if one_request:
@@ -928,19 +934,8 @@ def phase_serving(torch, model, seed):
     try:
         served = {kv: _serve_once(torch, model, prompts, kv, GRID)
                   for kv in ("bf16", "int8")}
-        # the served throughput of the batch-invariant GEMMs against plain
-        # F.linear ones (the layout before them), the same bf16 traffic
-        # once more with plain GEMMs (one turn: the profile phase times
-        # the same cost in turns, by the step)
-        tok_s = {"batch_invariant": [served["bf16"]["decode_tok_per_s"]]}
-        with _plain_serving_gemms():
-            tok_s["plain"] = [_serve_once(
-                torch, model, prompts, "bf16", GRID,
-                check_rows=False)["decode_tok_per_s"]]
-        log("serving", kv_cache="bf16", decode_tok_per_s=tok_s,
-            batch_invariant_cost=round(
-                float(np.mean(tok_s["plain"]) /
-                      np.mean(tok_s["batch_invariant"])) - 1, 4))
+        # the cost of the batch-invariant GEMMs against plain F.linear
+        # ones is timed by the profile phase, by the step, in turns
         for kv in ("bf16", "int8"):
             for i, (lo, hi) in enumerate(SHORT_WAVES):
                 short = _traffic(seed + 2 + i, model.config.vocab_size,
@@ -1014,14 +1009,13 @@ def phase_profile(torch, model, seed):
     step_ms, _ = decode_ms(False)
     # the cost of the batch-invariant GEMMs: the same loop with the
     # serving path's GEMMs as plain F.linear calls (the layout before
-    # them), in turns (invariant, plain, plain, invariant) twice; the
-    # host clock of a shared host is noisy, so the minimum of each is
-    # compared
+    # them), in turns (invariant, plain, plain, invariant: one round, to
+    # keep the script's time); the host clock of a shared host is noisy,
+    # so the minimum of each is compared
     invariant, plain = [step_ms], []
-    for i in range(2):
-        with _plain_serving_gemms():
-            plain += [decode_ms(False)[0] for _ in range(2)]
-        invariant += [decode_ms(False)[0] for _ in range(2 if i < 1 else 1)]
+    with _plain_serving_gemms():
+        plain += [decode_ms(False)[0] for _ in range(2)]
+    invariant += [decode_ms(False)[0]]
     n0 = fd.flash_decode.launches
     traced_ms, prof = decode_ms(True)
     fd_launches = fd.flash_decode.launches - n0
@@ -1195,34 +1189,6 @@ def _serve_churn(torch, srv, reqs):
     tokens = sum(mn for _, mn in reqs)
     return served, {"serve_s": round(dt, 3),
                     "tok_per_s": round(tokens / dt, 1), "stats": st}
-
-
-def _slot_turn(torch, model, reqs, kv="bf16", draft=None):
-    srv = _slot_server(torch, model, kv, draft=draft)
-    try:
-        _, out = _serve_churn(torch, srv, reqs)
-    finally:
-        srv.stop()
-    sl = out["stats"]["slot_loop"]
-    return {"tok_per_s": out["tok_per_s"], "ttft_p50_ms": sl["ttft_p50_ms"],
-            "ttft_p99_ms": sl["ttft_p99_ms"]}
-
-
-def _rtc_turn(torch, model, reqs):
-    from paddle_tpu_torch import serving
-    from paddle_tpu_torch.framework import flags
-    flags.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
-    srv = serving.Server()
-    srv.register_decode("gpt2", model, **GRID)
-    srv.start()
-    try:
-        _, out = _serve_churn(torch, srv, reqs)
-    finally:
-        srv.stop()
-    st = out["stats"]
-    return {"tok_per_s": out["tok_per_s"],
-            "ttft_p50_ms": round(st["ttft_p50_ms"], 3),
-            "ttft_p99_ms": round(st["ttft_p99_ms"], 3)}
 
 
 def _step_state(S, C, seed):
@@ -1427,8 +1393,7 @@ def phase_slots(torch, model, seed):
     built after warm-up, every step a replay of the captured graph); that
     graph holds 12 decode kernel nodes, so the churn launched 12 x steps,
     and 20 of its replays traced show them run; the captured step against
-    the eager one; slot server against run-to-completion server in
-    turns; the shared-prefix pass."""
+    the eager one; the shared-prefix pass."""
     from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.ops.kernels import flash_decode as fd
     from paddle_tpu_torch.text.generation import Generator
@@ -1510,16 +1475,7 @@ def phase_slots(torch, model, seed):
             log("slots", kv_cache=kv, requests=len(reqs), slots=SLOTS,
                 chunk=CHUNK, cache=SLOT_CACHE, **out[kv])
             del cap, eager, rt, srv, step
-        # (v) the slot server against the run-to-completion server, the
-        # same trace in turns
-        turns = {"slot": [], "run_to_completion": []}
-        for kind in ("slot", "run_to_completion", "slot"):
-            turns[kind].append(_slot_turn(torch, model, reqs)
-                               if kind == "slot"
-                               else _rtc_turn(torch, model, reqs))
-        log("slots", kv_cache="bf16", turns=turns)
-        out["turns"] = turns
-        # (vi) the shared-prefix pass, prefix cache on and off
+        # (v) the shared-prefix pass, prefix cache on and off
         rng = np.random.RandomState(seed + 11)
         prefix = rng.randint(1, model.config.vocab_size, PREFIX_LEN)
         prompts = [np.concatenate([prefix, rng.randint(
@@ -2529,8 +2485,7 @@ def _spec_slots(torch, model, draft, seed):
     warm-up; the captured graph's decode kernel nodes (draft layers x 5
     + target layers), 20 replays traced showing them run; captured
     against eager; the target as its own draft
-    accepts every proposal; speculative against plain slot server in
-    turns."""
+    accepts every proposal."""
     from paddle_tpu_torch.ops.kernels import flash_decode as fd
     from paddle_tpu_torch.text.generation import Generator
     from paddle_tpu_torch.text.graphs import CapturedSpecSlotStep
@@ -2626,15 +2581,7 @@ def _spec_slots(torch, model, draft, seed):
           f"spec slots, self-draft: {sl}")
     out["self_draft"] = {k: sl[k] for k in ("spec_accepted", "spec_proposed",
                                             "spec_acceptance_rate", "steps")}
-    # the speculative slot server against the plain one, one turn each
-    # (a third turn, spec again, was cut to pay for the dense phase's
-    # LeNet and residual block)
-    turns = {"spec": [], "plain": []}
-    for kind in ("spec", "plain"):
-        turns[kind].append(_slot_turn(
-            torch, model, reqs, draft=draft if kind == "spec" else None))
-    out["turns"] = turns
-    log("spec", path="slots", self_draft=out["self_draft"], turns=turns)
+    log("spec", path="slots", self_draft=out["self_draft"])
     return out
 
 
@@ -3062,12 +3009,34 @@ DENSE = dict(seq=128, ch=64, hw=56, buckets=(1, 2, 4, 8, 16), workers=2,
 DENSE_MODELS = ("lenet", "resnet_block", "bert")
 DENSE_SLO_P99_MS = {"lenet": 50.0, "resnet_block": 100.0, "bert": 250.0}
 DENSE_REPLAYS = 20      # bucket-16 replays traced (BERT) or timed
+# bert_int8's replay holds ~1,100 kernel nodes, 7x bf16 BERT's: 5 traced
+# replays give the same per-replay figures at a quarter of the records
+DENSE_TRACE_REPLAYS_INT8 = 5
 # a served result against the eager decorated model on the same padded
 # bucket: both run the same kernels (B1, cuDNN's convolutions, the same
 # GEMMs) at the same shapes, so they should agree bit for bit; the limit
 # is B1's bf16 one (FA_RTOL) as a share of max(1, max |ref|) of each
 # output
 DENSE_RTOL = 2.0 ** -6
+# bench_serving's int8 half (bench.py:743-760): the same three models in
+# f32, PTQ-calibrated (abs_max) over 4 batches of one RandomState(0)
+# bucket-1 input, FLAGS_use_int8_inference on, exported frozen by
+# export_for_serving(int8=True); the frozen sites each program must hold,
+# one aten._int_mm node each: LeNet's 2 convs and 3 linears, the block's
+# 2 convs, BERT-base's 6 projections a layer and the pooler
+DENSE_INT8_SITES = {"lenet": 5, "resnet_block": 2, "bert": 73}
+# no float product may stand in for a frozen site
+FLOAT_PRODUCTS = re.compile(
+    r"aten\.(mm|addmm|bmm|baddbmm|matmul|linear|convolution|_convolution|"
+    r"conv2d|cudnn_convolution)\b")
+# a frozen model on the card against the same frozen state on the CPU
+# (TF32 off), max |diff| over max |ref|: the integer products are exact
+# on both, but the f32 epilogues and BN round an ulp apart (the card
+# fuses a multiply and an add), and an input that then lands on the
+# other side of a half step is coded one int8 step apart at the next
+# site.  Readings on an H100: LeNet 0, the block 1.1e-3 (one such flip
+# into its second conv); the limit is 14x that
+INT8_CARD_CPU_RTOL = 2.0 ** -6
 
 
 def bench_block(ch, **kw):
@@ -3140,12 +3109,12 @@ def _bert_base(torch, seed):
     return model, cfg
 
 
-def _dense_model(torch, name, seed):
+def _dense_base(torch, name, seed):
     """bench_serving's model ``name`` built through the port's public API
-    as bench.py builds it (LeNet(), Block, BertModel), random weights
-    from ``seed``, cast to bf16 by paddle.amp.decorate(level="O2")
-    behind bf16_serve: (served model, input spec, each output's shape a
-    row, vocabulary or None, B1 operators the program must hold)."""
+    as bench.py builds it (LeNet(), Block, BertModel) on the card, in f32
+    with random weights from ``seed``, in eval mode: (model, input spec,
+    each output's shape a row, vocabulary or None, B1 operators the
+    program must hold)."""
     import paddle_tpu_torch as paddle
     paddle.seed(seed)
     torch.manual_seed(seed)
@@ -3165,6 +3134,17 @@ def _dense_model(torch, name, seed):
     check(all(p.device.type == "cuda" for p in inner.parameters())
           and all(b.device.type == "cuda" for b in inner.buffers()),
           f"dense {name}: a parameter or buffer is off the card")
+    inner.eval()
+    return inner, spec, shapes, vocab, b1
+
+
+def _dense_model(torch, name, seed):
+    """bench_serving's bf16 variant of ``name``: the f32 model of
+    ``_dense_base`` cast to bf16 by paddle.amp.decorate(level="O2")
+    behind bf16_serve: (served model, input spec, output shapes a row,
+    vocabulary or None, B1 operators)."""
+    import paddle_tpu_torch as paddle
+    inner, spec, shapes, vocab, b1 = _dense_base(torch, name, seed)
     paddle.amp.decorate(models=inner, level="O2", dtype="bfloat16")
     check(all(p.dtype == torch.bfloat16 for p in inner.parameters())
           and all(b.dtype in (torch.float32, torch.int64, torch.int32)
@@ -3172,6 +3152,24 @@ def _dense_model(torch, name, seed):
           f"dense {name}: amp.decorate O2 left a parameter outside bf16 "
           "or cast a buffer")
     return bf16_serve(inner), spec, shapes, vocab, b1
+
+
+def _dense_int8_model(torch, name, seed):
+    """bench_serving's int8 variant of ``name`` (bench.py:743-760): the
+    f32 model of ``_dense_base``, PostTrainingQuantization over 4
+    batches of one RandomState(0) bucket-1 input (abs_max; weights per
+    channel); export_for_serving(int8=True) freezes it.  Returns (the
+    quantized model, an f32 copy taken before calibration, input spec,
+    output shapes a row, vocabulary or None, B1 operators)."""
+    import copy
+    from paddle_tpu_torch.quantization import PostTrainingQuantization
+    model, spec, shapes, vocab, b1 = _dense_base(torch, name, seed)
+    f32 = copy.deepcopy(model)
+    cal = torch.from_numpy(_dense_input(np.random.RandomState(0), spec,
+                                        DENSE["buckets"][0], vocab)).cuda()
+    PostTrainingQuantization(model=model, data_loader=(
+        (cal,) for _ in range(4)), batch_nums=4).quantize()
+    return model, f32, spec, shapes, vocab, b1
 
 
 def _dense_input(rng, spec, rows, vocab):
@@ -3243,12 +3241,12 @@ def _reference_graph(torch, model, b, spec):
     return x, outs, graph
 
 
-def _dense_check(torch, name, model, done, spec, shapes):
+def _dense_check(torch, name, model, done, spec, shapes, rtol=DENSE_RTOL):
     """Every served result against the eager decorated model on its own
     rows at the bucket it rode (requests of one bucket packed together,
     zero rows padding the last pass), compared on the card with one read
     back at the end: rows exact (no padding in a result), and each output
-    within DENSE_RTOL of max(1, max |ref|) over the request's rows.  The
+    within ``rtol`` of max(1, max |ref|) over the request's rows.  The
     reference passes replay the eager forward captured once a bucket,
     whose first pass must equal the eager forward bit for bit (the eager
     passes took ~17 s of BERT's phase).  Returns (worst share, requests
@@ -3305,7 +3303,7 @@ def _dense_check(torch, name, model, done, spec, shapes):
             err = max(float(diffs[k, off:off + n].max()
                             / max(1.0, float(scales[k, off:off + n].max())))
                       for k in range(nout))
-            check(err <= DENSE_RTOL, f"dense {name}: served != eager at "
+            check(err <= rtol, f"dense {name}: served != eager at "
                   f"bucket {g[2]}: {err} of max(1, max |ref|)")
             worst = max(worst, err)
             equal += err == 0.0
@@ -3318,16 +3316,23 @@ def _dense_check(torch, name, model, done, spec, shapes):
 LIBRARY_ATTENTION = re.compile(r"flash|fmha|sdpa|attention|efficient", re.I)
 
 
-def _dense_graphs(name, rt, layers):
+# B1's forward kernels by (mangled) name in a graph and by (demangled)
+# name in a trace: bf16 runs tc::fwd_tc_kernel, f32 the FMA fwd_kernel
+B1_NODE = {"bfloat16": "fwd_tc_kernel", "float32": "10fwd_kernel"}
+B1_RECORD = {"bfloat16": "fwd_tc_kernel<", "float32": "fwd_kernel<"}
+
+
+def _dense_graphs(name, rt, layers, b1_dtype="bfloat16"):
     """Each bucket graph's kernel nodes (``_graph_nodes``): ``layers`` B1
-    forward nodes (tc::fwd_tc_kernel; 12 for BERT-base, none for LeNet
-    and the block) and no library attention node, so a replay launches
-    B1 ``layers`` times.  Returns {bucket: kernel nodes}."""
+    forward nodes of ``b1_dtype`` (12 for BERT-base, none for LeNet and
+    the block) and no library attention node, so a replay launches B1
+    ``layers`` times.  Returns {bucket: kernel nodes}."""
     out = {}
+    match = B1_NODE[b1_dtype]
     for b, ex in sorted(rt.executables.items()):
-        nodes, kernels = _graph_nodes(ex.graph, "fwd_tc_kernel")
+        nodes, kernels = _graph_nodes(ex.graph, match)
         library = sorted({n for n, _ in kernels if LIBRARY_ATTENTION.search(n)
-                          and "fwd_tc_kernel" not in n})
+                          and match not in n})
         check(sum(nodes.values()) == layers and not library,
               f"dense {name}: bucket {b}'s graph holds B1 nodes {nodes} "
               f"(want {layers}) and library attention nodes {library}")
@@ -3335,17 +3340,18 @@ def _dense_graphs(name, rt, layers):
     return out
 
 
-def _dense_trace(torch, graph, nodes):
-    """DENSE_REPLAYS replays of a captured bucket graph under
+def _dense_trace(torch, graph, nodes, b1_dtype="bfloat16",
+                 replays=DENSE_REPLAYS):
+    """``replays`` replays of a captured bucket graph under
     torch.profiler: one graph launch a replay, showing the graph's B1
-    nodes ``nodes`` run (``_traced_replays``), and the device time a
-    replay and its top kernels."""
+    nodes ``nodes`` (of ``b1_dtype``) run (``_traced_replays``), and the
+    device time a replay and its top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(DENSE_REPLAYS):
+        for _ in range(replays):
             graph.replay()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -3353,16 +3359,16 @@ def _dense_trace(torch, graph, nodes):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy > 0, "dense: the traced replays show no device time")
     whole = _traced_replays(
-        _records_by_launch(_chrome_events(prof), "fwd_tc_kernel"), nodes,
-        DENSE_REPLAYS, "dense bucket graph")
+        _records_by_launch(_chrome_events(prof), B1_RECORD[b1_dtype]),
+        nodes, replays, "dense bucket graph")
     b1_ms = sum(e.self_device_time_total for e in kernels
-                if "fwd_tc_kernel<" in e.key) / 1e3
+                if B1_RECORD[b1_dtype] in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"traced_replays_whole": whole,
             "kernel_records_per_replay": sum(e.count for e in kernels)
-            / DENSE_REPLAYS,
-            "device_ms_per_replay": round(busy / DENSE_REPLAYS, 4),
-            "b1_ms_per_replay": round(b1_ms / DENSE_REPLAYS, 4),
+            / replays,
+            "device_ms_per_replay": round(busy / replays, 4),
+            "b1_ms_per_replay": round(b1_ms / replays, 4),
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "ms": round(e.self_device_time_total / 1e3, 4)}
                             for e in top]}
@@ -3384,25 +3390,28 @@ def _replay_ms(torch, graph):
     return min(times)
 
 
-def _dense_b1_timing(torch, seed, worst):
-    """B1 at the served shape (B = 16, N = 12, S = 128, H = 64, bf16, no
-    bias, the model's strided views): checked against its plain version,
-    then timed by graph replay beside the plain version, SDPA and the
-    bound."""
+def _dense_b1_timing(torch, seed, worst, dtype="bfloat16"):
+    """B1 at the served shape (B = 16, N = 12, S = 128, H = 64, no bias,
+    the model's strided views) in ``dtype``: bf16 in the bf16 BERT's
+    program, f32 in the int8 one's (its float layers stay f32).  Checked
+    against its plain version, then timed by graph replay beside the
+    plain version, SDPA and the bound."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(seed + 11)
     B, N, S, H = DENSE["buckets"][-1], 12, DENSE["seq"], 64
-    sets = [_fa_inputs(torch, g, B, N, S, S, H, None, torch.bfloat16,
+    sets = [_fa_inputs(torch, g, B, N, S, S, H, None, getattr(torch, dtype),
                        "bsnh")[:3] for _ in range(FA_ROTATE)]
     o, _ = fa.flash_fwd(*sets[0])
     o_ref, _ = fa.flash_fwd_reference(*sets[0])
     torch.cuda.synchronize()
     err = _share_err(o, o_ref)
-    check(err <= FA_RTOL["bfloat16"], f"dense B1 shape: error {err}")
-    worst["fwd_served"] = (o.float() - o_ref.float()).abs().max().item()
+    check(err <= FA_RTOL[dtype], f"dense B1 shape ({dtype}): error {err}")
+    worst["fwd_served" + ("_f32" if dtype == "float32" else "")] = \
+        (o.float() - o_ref.float()).abs().max().item()
     n = len(sets)
-    bound, by, nbytes, ops = _fa_bound("fwd", B, N, S, S, H, 2, 0)
+    bound, by, nbytes, ops = _fa_bound("fwd", B, N, S, S, H,
+                                       2 if dtype == "bfloat16" else 4, 0)
     return {"ms": _graph_ms(torch, lambda i: fa.flash_fwd(*sets[i % n]),
                             2 * n),
             "plain_ms": _graph_ms(torch, lambda i: fa.flash_fwd_reference(
@@ -3422,20 +3431,112 @@ def _port_launches(reset=False):
             **_fused_counts(reset)}
 
 
-def _dense_serve(torch, name, seed, card):
-    """One bench_serving model in bf16 through the dense path:
+def _int8_products(torch, name, model, spec, vocab, seed):
+    """Each frozen site's integer product on the card against the exact
+    one on the CPU, on the codes and at the shapes of the main path: an
+    eager forward of the frozen model at buckets 1 and 16 records every
+    ``ops.int8.int8_mm`` call (its padded operands' source rows and
+    weight, and its int32 result).  The CPU product is taken in f64:
+    each partial sum is an integer below 2^53 (|code| <= 128, K <= 3072),
+    so it is exact, the int64 product.  Returns {(M, K, N): count}."""
+    from paddle_tpu_torch.ops import int8 as I8
+    seen, real = [], I8.int8_mm
+
+    def recording(a, w):
+        out = real(a, w)
+        seen.append((a, w, out))
+        return out
+
+    rng = np.random.RandomState(seed + 7)
+    I8.int8_mm = recording
+    try:
+        with torch.no_grad():
+            for b in (DENSE["buckets"][0], DENSE["buckets"][-1]):
+                model(torch.from_numpy(_dense_input(rng, spec, b, vocab))
+                      .cuda())
+    finally:
+        I8.int8_mm = real
+    sites = DENSE_INT8_SITES[name]
+    check(len(seen) == 2 * sites, f"dense {name}_int8: {len(seen)} int8 "
+          f"products in two forwards, want {2 * sites}")
+    shapes = {}
+    for a, w, out in seen:
+        want = (a.cpu().double() @ w.cpu().double().t()).long()
+        check(out.is_cuda and out.dtype == torch.int32
+              and torch.equal(out.cpu().long(), want),
+              f"dense {name}_int8: the card's int8 product at "
+              f"{tuple(a.shape)} x {tuple(w.shape)} differs from the "
+              "exact one")
+        key = f"{a.shape[0]}x{a.shape[1]}x{w.shape[0]}"
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def _int8_readings(torch, name, model, f32, spec, vocab, seed):
+    """At one bucket-16 input: the frozen model on the card against a copy
+    on the CPU (LeNet and the block; TF32 off), max |diff| / max |cpu|,
+    held to INT8_CARD_CPU_RTOL; and the quantization's cost, max |int8 -
+    f32| / max |f32| against the f32 model before calibration, reported
+    only.  Returns both (the first None for BERT)."""
+    import copy
+    x = torch.from_numpy(_dense_input(np.random.RandomState(seed + 9), spec,
+                                      DENSE["buckets"][-1], vocab)).cuda()
+    with torch.no_grad():
+        got, ref = _outputs(model(x)), _outputs(f32(x))
+        cost = max(float((g - r).abs().max() / r.abs().max())
+                   for g, r in zip(got, ref))
+        card_cpu = None
+        if name != "bert":
+            cpu = copy.deepcopy(model).to("cpu")
+            want = _outputs(cpu(x.cpu()))
+            card_cpu = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                           for g, w in zip(got, want))
+            check(card_cpu <= INT8_CARD_CPU_RTOL,
+                  f"dense {name}_int8: the card against the CPU on one "
+                  f"frozen state: {card_cpu} of max |ref|")
+    return card_cpu, cost
+
+
+def _dense_serve(torch, name, seed, card, int8=False):
+    """One bench_serving model through the dense path, in bf16 or int8:
     export_for_serving -> Server.register -> start (one CUDA graph a
     bucket) -> submit, under bench_serving's traffic."""
+    from paddle_tpu_torch.framework.flags import (flags_restore,
+                                                  flags_snapshot, set_flags)
+    key = f"{name}_int8" if int8 else name
+    snap = flags_snapshot()
+    try:
+        if int8:
+            model, f32, spec, shapes, vocab, b1 = _dense_int8_model(
+                torch, name, seed)
+            set_flags({"FLAGS_use_int8_inference": True})
+        else:
+            model, spec, shapes, vocab, b1 = _dense_model(torch, name, seed)
+        return _dense_serve_model(torch, key, model, spec, shapes, vocab, b1,
+                                  seed, card, int8,
+                                  f32 if int8 else None)
+    finally:
+        flags_restore(snap)
+
+
+def _dense_serve_model(torch, key, model, spec, shapes, vocab, b1, seed,
+                       card, int8, f32):
+    """``_dense_serve``'s run of one built model: export, warm-up, the
+    program's and graphs' checks, the traffic, served against eager, and
+    for an int8 model its products and readings.  Returns the record."""
     from paddle_tpu_torch import serving
-    model, spec, shapes, vocab, b1 = _dense_model(torch, name, seed)
+    name = key[:-len("_int8")] if int8 else key
+    b1_dtype = "float32" if int8 else "bfloat16"
     out_dir = os.path.join(ROOT, "build", "dense")
     shutil.rmtree(out_dir, ignore_errors=True)
     prefix = os.path.join(out_dir, name)
     _port_launches(reset=True)          # the path's run: counts from 0
     t0 = time.perf_counter()
     manifest = serving.export_for_serving(model, prefix, [spec],
-                                          buckets=DENSE["buckets"])
+                                          buckets=DENSE["buckets"],
+                                          int8=int8)
     export_s = time.perf_counter() - t0
+    check(manifest["int8"] == int8, f"dense {key}: manifest {manifest}")
     srv = serving.Server(serving.ServingConfig(workers=DENSE["workers"],
                                                buckets=DENSE["buckets"]))
     srv.register(name, prefix, buckets=DENSE["buckets"])
@@ -3447,9 +3548,10 @@ def _dense_serve(torch, name, seed, card):
         check(all(rt.executables[b].captured for b in DENSE["buckets"])
               and [e["bucket"] for e in rt.events]
               == list(DENSE["buckets"]),
-              f"dense {name}: warm-up captured {rt.events}")
+              f"dense {key}: warm-up captured {rt.events}")
         # one parameter set: every graph's and every worker's predictor
-        # reads the loaded program's tensors
+        # reads the loaded program's tensors (the int8 codes and scales
+        # of an int8 program are among them)
         ptrs = {p.data_ptr() for p in rt.primary._translated._params}
         held = {p.data_ptr() for ex in rt.executables.values()
                 for p in ex.predictor._translated._params}
@@ -3457,7 +3559,7 @@ def _dense_serve(torch, name, seed, card):
                  for c in w.clones[name].values()
                  for p in c._translated._params}
         check(manifest["mode"] != "poly" or held == ptrs,
-              f"dense {name}: a graph or a worker holds its own copy of "
+              f"dense {key}: a graph or a worker holds its own copy of "
               "the weights")
         program = rt.primary._translated.program()
         nodes = [str(n.target) for n in program.graph.nodes
@@ -3465,42 +3567,75 @@ def _dense_serve(torch, name, seed, card):
         b1_nodes = sum("flash_attention_fwd" in n for n in nodes)
         check(b1_nodes == b1 and not any(
             "scaled_dot_product" in n or "einsum" in n for n in nodes),
-              f"dense {name}: the exported program holds {b1_nodes} B1 "
+              f"dense {key}: the exported program holds {b1_nodes} B1 "
               f"nodes (want {b1})")
+        int_mm = sum("_int_mm" in n for n in nodes)
+        floats = sorted({n for n in nodes if FLOAT_PRODUCTS.search(n)})
+        info = rt.primary.quant_info()
+        if int8:
+            sites = DENSE_INT8_SITES[name]
+            check(int_mm == sites and not floats
+                  and info["sites"] == sites
+                  and all(p.is_cuda for p in rt.primary._translated._params),
+                  f"dense {key}: the int8 program holds {int_mm} _int_mm "
+                  f"nodes for {sites} sites, float products {floats}, "
+                  f"sidecar {info}")
         done, errors = _dense_traffic(srv, name, spec, vocab, seed)
         st = srv.stats(name)
         launches = _port_launches()
         steady = srv.compile_events_since_warmup()
-        check(not errors, f"dense {name}: client errors {errors[:4]}")
+        check(not errors, f"dense {key}: client errors {errors[:4]}")
         check(not steady and st["steady_compiles"] == 0,
-              f"dense {name}: steady-state captures {steady}")
+              f"dense {key}: steady-state captures {steady}")
         srv.assert_zero_steady_state_recompiles()
         check(st["completed"] == len(done) and len(done) > 0,
-              f"dense {name}: {st['completed']} completed, {len(done)} "
+              f"dense {key}: {st['completed']} completed, {len(done)} "
               "returned")
         # every batch was one replay of its bucket's graph, and each
         # graph launches B1 once a layer (none for LeNet and the block,
         # whose wrappers launched nothing either)
         replays = {b: ex.replays for b, ex in rt.executables.items()}
         check(sum(replays.values()) == st["batches"],
-              f"dense {name}: {replays} replays for {st['batches']} "
+              f"dense {key}: {replays} replays for {st['batches']} "
               "batches")
         check(b1 or not any(launches.values()),
-              f"dense {name}: kernel wrappers launched {launches}")
-        graphs = _dense_graphs(name, rt, b1)
+              f"dense {key}: kernel wrappers launched {launches}")
+        graphs = _dense_graphs(key, rt, b1, b1_dtype)
         top = DENSE["buckets"][-1]
         graph = rt.executables[top].graph
-        trace = _dense_trace(torch, graph, graphs[top]["b1_nodes"]) \
+        trace = _dense_trace(
+            torch, graph, graphs[top]["b1_nodes"], b1_dtype,
+            DENSE_TRACE_REPLAYS_INT8 if int8 else DENSE_REPLAYS) \
             if b1 else {}
         replay_ms = _replay_ms(torch, graph)
+        top_names = sorted({n for n, _ in _graph_nodes(graph, "")[1]})
     finally:
         srv.stop()
     t0 = time.perf_counter()
-    worst_err, equal = _dense_check(torch, name, model, done, spec, shapes)
+    # an int8 result is held to the eager frozen model bit for bit: the
+    # integer products are exact at any row count
+    worst_err, equal = _dense_check(torch, key, model, done, spec, shapes,
+                                    0.0 if int8 else DENSE_RTOL)
+    extra = {}
+    if int8:
+        t1 = time.perf_counter()
+        products = _int8_products(torch, name, model, spec, vocab, seed)
+        products_s = time.perf_counter() - t1
+        card_cpu, cost = _int8_readings(torch, name, model, f32, spec, vocab,
+                                        seed)
+        extra = {"sites": DENSE_INT8_SITES[name], "int_mm_nodes": int_mm,
+                 "products_check_s": round(products_s, 1),
+                 "float_product_nodes": floats, "quant_info": info,
+                 "site_products_equal_int64": products,
+                 "card_vs_cpu_max_share": card_cpu,
+                 "int8_vs_f32_max_share": cost,
+                 "bucket16_kernel_names": top_names}
     check_s = time.perf_counter() - t0
     shutil.rmtree(out_dir, ignore_errors=True)
     slo = DENSE_SLO_P99_MS[name]
-    out = {"model": name, "input": spec, "config": "bf16 (amp O2)",
+    out = {"model": key, "input": spec,
+           "config": "int8 (PTQ abs_max, frozen; f32 float layers)" if int8
+           else "bf16 (amp O2)",
            "export_mode": manifest["mode"],
            "export_s": round(export_s, 3), "warmup_s": round(warmup_s, 3),
            "buckets": list(DENSE["buckets"]), "workers": DENSE["workers"],
@@ -3523,18 +3658,40 @@ def _dense_serve(torch, name, seed, card):
            "graph_nodes": graphs,
            "served_vs_eager_max_share": worst_err,
            "served_equal_eager": f"{equal}/{len(done)}",
-           "check_s": round(check_s, 1), "card": card, **trace}
+           "check_s": round(check_s, 1), "card": card, **extra, **trace}
     log("dense", **out)
     return out
 
 
-def phase_dense(torch, seed, card):
-    """bench_serving's bf16 models (lenet, resnet_block, bert) served one
-    after another through the dense path; {model: record}."""
+def _int_mm_rules(torch):
+    """Which unpadded shapes the card's ``torch._int_mm`` refuses (rows
+    <= 16, K or N not a multiple of 8): {case: "ok" or its error}; the
+    port pads for each (``ops.int8.int8_mm``)."""
     out = {}
-    for name in DENSE_MODELS:
-        out[name] = _dense_serve(torch, name, seed, card)
-        torch.cuda.empty_cache()
+    for case, (m, k, n) in {"rows_16": (16, 32, 32), "rows_17": (17, 32, 32),
+                            "k_9": (32, 9, 32), "n_6": (32, 32, 6)}.items():
+        a = torch.ones((m, k), dtype=torch.int8, device="cuda")
+        w = torch.ones((n, k), dtype=torch.int8, device="cuda")
+        try:
+            torch._int_mm(a, w.t())
+            torch.cuda.synchronize()
+            out[case] = "ok"
+        except RuntimeError as e:
+            out[case] = str(e).splitlines()[0][:120]
+    return out
+
+
+def phase_dense(torch, seed, card):
+    """bench_serving's six variants served one after another through the
+    dense path: the bf16 models (lenet, resnet_block, bert), then the
+    int8 ones; {model: record}, the int8 ones keyed "<model>_int8"."""
+    out = {}
+    for int8 in (False, True):
+        for name in DENSE_MODELS:
+            rec = _dense_serve(torch, name, seed, card, int8)
+            out[rec["model"]] = rec
+            torch.cuda.empty_cache()
+    log("dense", int_mm_unpadded=_int_mm_rules(torch), torch=torch.__version__)
     log("dense", summary={n: {k: r[k] for k in (
         "export_mode", "export_s", "warmup_s", "qps", "p50_ms", "p99_ms",
         "slo_met", "kernel_nodes_per_replay", "replay_ms")}
@@ -5359,6 +5516,9 @@ def main(argv=None):
     dense_t = _dense_b1_timing(torch, args.seed, fa_worst)
     log("dense", b1_timing="B=16 N=12 S=128 H=64 bf16, no bias, model "
         "layout", ms=dense_t)
+    dense_t32 = _dense_b1_timing(torch, args.seed, fa_worst, "float32")
+    log("dense", b1_timing="B=16 N=12 S=128 H=64 f32 (bert_int8), no "
+        "bias, model layout", ms=dense_t32)
     model = _gpt2(torch, args.seed, torch.bfloat16)
     _at("serving")
     served = phase_serving(torch, model, args.seed)
@@ -5447,6 +5607,19 @@ def main(argv=None):
         "plain_ms": dense_t["plain_ms"], "bound_ms": dense_t["bound_ms"],
         "bound_by": dense_t["bound_by"],
         "library_ms": dense_t["library_ms"]})
+    # B1's f32 kernel inside the exported bert_int8 program (its float
+    # layers stay f32), timed at the same served shape in f32
+    fa_kernels.append({
+        "name": "flash_attention_fwd_served_f32", "route": "cuda",
+        "source": fa_src,
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:67",
+        "launches": dense["bert_int8"]["launches"]["flash_attention_fwd"],
+        "launches_per_replay": dense["bert_int8"]["b1_kernels_per_replay"],
+        "launches_replayed": dense["bert_int8"]["b1_launches_replayed"],
+        "max_abs_err": fa_worst["fwd_served_f32"], "ms": dense_t32["ms"],
+        "plain_ms": dense_t32["plain_ms"], "bound_ms": dense_t32["bound_ms"],
+        "bound_by": dense_t32["bound_by"],
+        "library_ms": dense_t32["library_ms"]})
     # the Transformer-big path: launches of seq2seq_train's run (18 a
     # step), timed at its shape (B=64, N=16, S=64, H=64, bf16, no mask)
     s2s_t = fa_s2s["t"]

@@ -11,7 +11,8 @@ on static-graph mode (``static``): registered ops then record into a
 
 ``import paddle_tpu_torch as paddle`` reaches the subpackages of the JAX
 package's ``_SUBPACKAGES`` that are ported (``paddle.amp``,
-``paddle.jit``, ``paddle.serving``, ``paddle.vision``...), so code
+``paddle.jit``, ``paddle.quantization``, ``paddle.serving``,
+``paddle.vision``...), so code
 written against ``paddle`` (``paddle.amp.decorate``, ``paddle.cast``,
 ``nn.Layer``) runs unchanged.
 """
@@ -26,5 +27,5 @@ from .ops.math import (add, divide, matmul, mean, multiply,  # noqa: F401
                        subtract, sum)
 from . import nn, optimizer, static  # noqa: F401,E402
 from . import (amp, distributed, inference, jit,  # noqa: F401,E402
-               profiler, serving, text, vision)
+               profiler, quantization, serving, text, vision)
 from .nn.layer.layers import ParamAttr  # noqa: F401,E402

@@ -8,7 +8,15 @@ carry the same dotted names, so the bridge maps name to name.  The one
 layout that differs is ``Linear``'s weight: Paddle stores it ``[in,
 out]``, torch ``[out, in]``, so those are transposed; Conv2D weights
 (OIHW in both), Embedding, LayerNorm and BatchNorm tensors copy as they
-are.  A tied parameter (BERT's MLM decoder weight is the word embedding)
+are.  A frozen int8 model (``quantization.freeze``) carries across the
+same way: ``weight_int8``, ``weight_scale``, ``input_scale`` and
+``out_scale`` of each frozen site are buffers of the same names, and a
+frozen linear's int8 codes are transposed as its float weight is.  The
+port's model is frozen first with the settings of the JAX one (per
+channel or per tensor, dynamic, a folded out-scale), so that both hold
+the same sites; the bridge then overwrites their codes and scales, and
+a per-channel site meeting a per-tensor one fails on the scales'
+shapes.  A tied parameter (BERT's MLM decoder weight is the word embedding)
 appears once in ``layer_state``, under its first name, as it does in
 ``named_parameters()``; its other names are skipped here.
 
@@ -47,9 +55,13 @@ def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
         raise InvalidArgumentError(
             f"load_jax_state: names missing from params {missing}, "
             f"unknown names in params {extra}")
+    from ..quantization.freeze import FrozenQuantizedLinear
     # the module itself may be a Linear: its weight is named "weight"
     linear = {f"{n}.weight".lstrip(".") for n, m in module.named_modules()
               if isinstance(m, nn.Linear)}
+    linear |= {f"{n}.weight_int8".lstrip(".")
+               for n, m in module.named_modules()
+               if isinstance(m, FrozenQuantizedLinear)}
     staged = {}
     for name, dst in own.items():
         src = np.asarray(params[name])
@@ -66,7 +78,8 @@ def load_jax_state(module: nn.Module, params: Mapping) -> nn.Module:
         staged[name] = src
     with torch.no_grad():
         for name, dst in own.items():
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(staged[name])))
+            # np.array keeps a 0-d scale 0-d (ascontiguousarray makes it 1-d)
+            dst.copy_(torch.from_numpy(np.array(staged[name], order="C")))
     return module
 
 

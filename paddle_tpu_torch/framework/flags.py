@@ -137,8 +137,9 @@ define_flag("graph_lint",
 define_flag("use_int8_inference",
             os.environ.get("PADDLE_TPU_INT8", "").lower()
             in ("1", "true", "yes", "on"),
-            "Serve frozen int8 inference programs.  Not ported (ROADMAP "
-            "A10): a Predictor raises while this is on.")
+            "Serve frozen int8 inference programs: a Predictor whose "
+            "model has a '.int8' sibling export (quantization."
+            "save_int8_model) loads that one instead.")
 
 # ---- Autoregressive decoding --------------------------------------------------
 define_flag("use_flash_decode", True,

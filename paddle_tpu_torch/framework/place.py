@@ -60,7 +60,10 @@ def place_device(place=None) -> torch.device:
 
 
 def module_device(module: torch.nn.Module) -> Optional[torch.device]:
-    """The device of a module's first parameter (None if it has none)."""
+    """The device of a module's first parameter, else of its first buffer
+    (None if it has neither)."""
     for p in module.parameters():
         return p.device
+    for b in module.buffers():
+        return b.device
     return None

@@ -11,11 +11,16 @@ thread.  ``run`` returns numpy arrays; ``run_async`` returns the device
 tensors without waiting for them (a bf16 output reaches numpy as
 float32, exactly: numpy has no bfloat16).
 
+Frozen int8 programs (``quantization.save_int8_model``): under
+``FLAGS_use_int8_inference`` a model whose prefix has a ``.int8``
+sibling loads that one; a ``.int8`` prefix, or a directory or prefix
+holding only an int8 export, loads as such.  ``quant_info()`` is then
+the ``quant.json`` sidecar, and None on the float path.
+
 Not ported, and raising :class:`UnimplementedError` with the ROADMAP
 item: the static-program branch (the inference-model format of
 ``save_inference_model``/``load_inference_model``, A13; the static
-Executor itself is ported), frozen int8 programs (``.int8`` artifacts and
-``FLAGS_use_int8_inference``, A10) and the persistent compile cache
+Executor itself is ported) and the persistent compile cache
 (``set_optim_cache_dir``, A13).
 """
 from __future__ import annotations
@@ -34,12 +39,6 @@ from ..framework.enforce import (InvalidArgumentError, NotFoundError,
 from ..framework.place import resolve_device
 
 __all__ = ["Config", "PredictorTensor", "Predictor", "create_predictor"]
-
-
-def _int8(what):
-    return UnimplementedError(
-        f"{what}: frozen int8 programs are not ported (ROADMAP A10, with "
-        "quantization/)")
 
 
 class Config:
@@ -171,8 +170,7 @@ class Predictor:
         if d is None:
             raise ValueError("Config needs a model dir or a jit.save "
                              "prefix")
-        if _flags.flag("use_int8_inference"):
-            raise _int8("FLAGS_use_int8_inference")
+        from ..quantization.freeze import load_quant_sidecar
         prefix = self._jit_prefix(d)
         if prefix is None:
             raise UnimplementedError(
@@ -181,8 +179,15 @@ class Predictor:
                 "save_inference_model/load_inference_model) is not ported "
                 "(ROADMAP A13); export with paddle_tpu_torch.jit.save or "
                 "serving.export_for_serving")
+        self._quant_info = None
+        # the int8 sibling is chosen by the flag; a '.int8' prefix (or an
+        # int8-only export) is int8 whatever the flag says
+        if _flags.flag("use_int8_inference") \
+                and not prefix.endswith(".int8") \
+                and os.path.isfile(prefix + ".int8.pdmodel"):
+            prefix += ".int8"
         if prefix.endswith(".int8"):
-            raise _int8(prefix)
+            self._quant_info = load_quant_sidecar(prefix[:-len(".int8")])
         self.device = resolve_device(config.device())
         self._translated = _jit.load(prefix, device=self.device)
         self._feed_names = [f"x{i}" for i in range(
@@ -192,6 +197,11 @@ class Predictor:
         self._feeds: Dict[str, object] = {}
         self._results: Dict[str, object] = {}
         self._declared_shapes: Dict[str, tuple] = {}
+
+    def quant_info(self):
+        """The served model's quantization sidecar (``quant.json``) when
+        the int8 program was loaded; None on the float path."""
+        return self._quant_info
 
     def clone(self):
         """AnalysisPredictor::Clone parity: a predictor sharing this one's

@@ -32,8 +32,13 @@ server builds one session store at ``start`` (serving/sessions.py) and
 live ones.  ``prefill_handoff`` / ``decode_from_handoff`` split a
 decode into its prefill and its decode across a KV handoff.
 
+``export_for_serving(int8=True)`` exports a frozen int8 program
+(``quantization.save_int8_model``: ``<prefix>.int8.pdmodel`` and the
+``quant.json`` sidecar), which the Predictor loads, and the bucket
+graphs capture, as any other program.
+
 Not ported: the graph-lint admission gate (``FLAGS_graph_lint`` must be
-"off"), int8 exports, tracing spans, tenants and the cluster router.
+"off"), tracing spans, tenants and the cluster router.
 """
 from __future__ import annotations
 
@@ -98,14 +103,13 @@ def export_for_serving(layer, prefix: str, input_spec, buckets=None,
     the ladder: ``torch.export`` may have specialized the batch dim, and
     bucket 1 is where that shows.  If either fails it writes one export
     per bucket, ``<prefix>.b<k>`` ("per_bucket").  The program is
-    exported on ``layer``'s device and serves there.  Int8 exports are
-    not ported (ROADMAP A10)."""
+    exported on ``layer``'s device and serves there.  With ``int8`` each
+    export is a frozen int8 one (``quantization.save_int8_model``, which
+    freezes a QAT- or PTQ-calibrated ``layer`` in place first), written
+    as ``<prefix>.int8`` (``<prefix>.b<k>.int8``) beside its
+    ``quant.json``; the Predictor's int8 path loads it."""
     from .. import jit as _jit
     from ..static import InputSpec
-    if int8:
-        raise UnimplementedError(
-            "export_for_serving(int8=True): frozen int8 programs are not "
-            "ported (ROADMAP A10)")
     ladder = BucketLadder.from_flag(buckets)
     device = module_device(layer) or torch.device("cpu")
 
@@ -119,11 +123,16 @@ def export_for_serving(layer, prefix: str, input_spec, buckets=None,
              for shape, dtype in map(norm, input_spec)]
 
     def save(pfx, lead):
-        _jit.save(layer, pfx, input_spec=[
-            InputSpec([lead] + rest, dtype=dtype) for rest, dtype in rests])
+        spec = [InputSpec([lead] + rest, dtype=dtype)
+                for rest, dtype in rests]
+        if int8:
+            from ..quantization import save_int8_model
+            save_int8_model(layer, pfx, input_spec=spec)
+        else:
+            _jit.save(layer, pfx, input_spec=spec)
 
     def verify(pfx):
-        tl = _jit.load(pfx, device=device)
+        tl = _jit.load(pfx + (".int8" if int8 else ""), device=device)
         for b in ladder:
             outs = tl(*[torch.zeros([b] + rest,
                                     dtype=_jit.to_torch_dtype(dtype),
@@ -142,7 +151,7 @@ def export_for_serving(layer, prefix: str, input_spec, buckets=None,
         mode = "per_bucket"
         for b in ladder:
             save(f"{prefix}.b{b}", b)
-    manifest = {"mode": mode, "buckets": ladder.buckets, "int8": False,
+    manifest = {"mode": mode, "buckets": ladder.buckets, "int8": bool(int8),
                 "input_specs": [[[None] + rest, _dtype_name(dtype)]
                                 for rest, dtype in rests]}
     with open(_manifest_path(prefix), "w") as f:

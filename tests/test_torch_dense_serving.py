@@ -305,7 +305,9 @@ def test_serving_stop_without_drain_fails_pending(tmp_path):
 
 
 def test_unported_serving_options_raise(tmp_path):
-    """The graph-lint admission gate and int8 exports are not ported."""
+    """The graph-lint admission gate is not ported; an int8 export of a
+    model with no quantized site raises, as the JAX package's freeze
+    does."""
     net, prefix, _ = _export_mlp(tmp_path, "lint")
     snap = tflags.flags_snapshot()
     srv = _server(workers=1)
@@ -317,6 +319,6 @@ def test_unported_serving_options_raise(tmp_path):
     finally:
         srv.stop()
         tflags.flags_restore(snap)
-    with pytest.raises(UnimplementedError, match="A10"):
+    with pytest.raises(ValueError, match="no Quantized"):
         serving.export_for_serving(net, str(tmp_path / "q"),
                                    [InputSpec([None, 6])], int8=True)

@@ -45,6 +45,9 @@ def _imported_roots(path):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 20 and os.path.exists(files[0])
+    for new in ("quantization/ptq.py", "quantization/freeze.py",
+                "ops/int8.py"):
+        assert os.path.join(ROOT, "paddle_tpu_torch", new) in files
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f))
                                              & set(BANNED))
            for f in files}
@@ -91,6 +94,10 @@ def test_package_imports_with_jax_unimportable():
             "from paddle_tpu_torch import enable_static, flatten, matmul\n"
             "from paddle_tpu_torch.nn import Layer, LayerList, Sequential\n"
             "from paddle_tpu_torch.vision.models import LeNet\n"
+            "import paddle_tpu_torch.quantization, paddle_tpu_torch.ops.int8\n"
+            "from paddle_tpu_torch.quantization import (freeze, "
+            "PostTrainingQuantization, save_int8_model)\n"
+            "from paddle_tpu_torch.ops.int8 import conv2d_int8, linear_int8\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -243,3 +250,45 @@ def test_static_executor_needs_cuda_unless_asked_for_cpu(monkeypatch):
             static.Executor(place)
     for place in ("cpu", paddle.CPUPlace()):
         assert static.Executor(place).device.type == "cpu"
+
+
+def test_int8_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
+                                                         tmp_path):
+    """PTQ runs on the model's device, and a default-built model needs the
+    card; export_for_serving(int8=True) exports on the model's device;
+    the int8 Predictor, like the float one, needs CUDA unless its Config
+    asks for the CPU, with or without FLAGS_use_int8_inference."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.framework.flags import (flags_restore,
+                                                  flags_snapshot, set_flags)
+    from paddle_tpu_torch.quantization import (FrozenQuantizedLinear,
+                                               PostTrainingQuantization)
+    from paddle_tpu_torch.vision.models import LeNet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+        LeNet()
+    m = LeNet(device="cpu")
+    cal = np.zeros((1, 1, 28, 28), np.float32) + 0.5
+    PostTrainingQuantization(model=m, data_loader=((cal,) for _ in
+                                                   range(4))).quantize()
+    prefix = str(tmp_path / "lenet")
+    man = serving.export_for_serving(m, prefix,
+                                     [([None, 1, 28, 28], "float32")],
+                                     buckets=(1, 2), int8=True)
+    assert man["int8"] and isinstance(m.fc[0], FrozenQuantizedLinear)
+    assert m.fc[0].weight_int8.device.type == "cpu"
+    snap = flags_snapshot()
+    try:
+        for on in (False, True):
+            set_flags({"FLAGS_use_int8_inference": on})
+            with pytest.raises(PreconditionNotMetError):
+                inference.create_predictor(inference.Config(prefix))
+            cfg = inference.Config(prefix)
+            cfg.disable_gpu()
+            p = inference.create_predictor(cfg)
+            assert p.quant_info()["sites"] == 5
+            assert p.run([cal])[0].shape == (1, 10)
+    finally:
+        flags_restore(snap)
+    with pytest.raises(PreconditionNotMetError):
+        serving.Server().register("lenet", prefix)

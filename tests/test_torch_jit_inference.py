@@ -218,16 +218,20 @@ def test_unported_branches_raise(tmp_path):
     open(tmp_path / "static" / "__model__", "w").close()
     with pytest.raises(UnimplementedError, match="A13"):
         inference.create_predictor(_cpu_config(str(tmp_path / "static")))
+    # int8 programs are ported: an int8-only prefix loads as such (no
+    # sidecar here, so no quant_info), and the flag over a float-only
+    # export keeps the float program
     jit.save(_mlp(3), str(tmp_path / "m.int8"),
              input_spec=[InputSpec([None, 6])])
-    with pytest.raises(UnimplementedError, match="A10"):
-        inference.create_predictor(_cpu_config(str(tmp_path / "m")))
+    p = inference.create_predictor(_cpu_config(str(tmp_path / "m")))
+    assert p.quant_info() is None
+    assert p.run([np.ones((2, 6), np.float32)])[0].shape == (2, 2)
     jit.save(_mlp(3), str(tmp_path / "f"), input_spec=[InputSpec([None, 6])])
     snap = tflags.flags_snapshot()
     try:
         tflags.set_flags({"FLAGS_use_int8_inference": True})
-        with pytest.raises(UnimplementedError, match="A10"):
-            inference.create_predictor(_cpu_config(str(tmp_path / "f")))
+        p = inference.create_predictor(_cpu_config(str(tmp_path / "f")))
+        assert p.quant_info() is None
     finally:
         tflags.flags_restore(snap)
     with pytest.raises(UnimplementedError, match="A13"):

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card (flash-decode B3/B4,
 flash-attention B1/B2, fused batch norm B5/B6, fused conv B7), against
-their plain PyTorch versions on the same inputs.
+their plain PyTorch versions on the same inputs, and the dense serving
+path on the card (bf16 and int8: cuBLASLt's int8 GEMM against the exact
+product).
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card, where JAX is not installed (its conftest is skipped there)::
@@ -1215,6 +1217,121 @@ def test_lenet_bucket_replay_equals_the_eager_loaded_program(cuda,
         srv.assert_zero_steady_state_recompiles()
     finally:
         srv.stop()
+
+
+# -- int8 sites: i8 x i8 -> i32 products through cuBLASLt (torch._int_mm),
+# padded to its rules (more than 16 rows, K and N multiples of 8) ----------
+
+# (rows, K, N): LeNet's awkward sites at buckets 1 and 16 (the fc layers'
+# rows; conv1's K = 9 and N = 6; conv2's K = 150; fc3's N = 10)
+INT8_SHAPES = [(1, 400, 120), (16, 120, 84), (1, 84, 10), (16, 84, 10),
+               (784, 9, 6), (12544, 9, 6), (100, 150, 16), (17, 16, 8)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_mm_equals_the_exact_product(cuda, m, k, n):
+    """The int8 GEMM route on the card equals the int64 product on the
+    CPU, bit for bit, at shapes cuBLASLt refuses unpadded."""
+    from paddle_tpu_torch.ops import int8 as I8
+    rng = np.random.RandomState(m * k + n)
+    a = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (n, k)).astype(np.int8))
+    got = I8.int8_mm(a.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu().long(), a.long() @ w.long().t())
+
+
+def test_int8_conv_route_equals_the_exact_product(cuda):
+    """conv2d_int8's im2col and GEMM on the card against the int64 conv
+    of the same codes on the CPU (conv1 and conv2 of LeNet, a strided,
+    padded and grouped conv), through the dequantize epilogue with unit
+    scales, which is exact below 2^24."""
+    from paddle_tpu_torch.ops import int8 as I8
+    rng = np.random.RandomState(5)
+    for (b, c, hw, o, kk, kw) in [
+            (16, 1, 28, 6, 3, dict(padding=1)),
+            (1, 6, 14, 16, 5, dict()),
+            (2, 4, 9, 8, 3, dict(stride=(2, 2), padding=2, groups=2))]:
+        g = kw.get("groups", 1)
+        x = rng.randint(-127, 128, (b, c, hw, hw)).astype(np.float32)
+        w = rng.randint(-127, 128, (o, c // g, kk, kk)).astype(np.int8)
+        got = I8.conv2d_int8(torch.from_numpy(x).to(cuda),
+                             torch.from_numpy(w).to(cuda),
+                             torch.tensor(127.0, device=cuda),
+                             torch.full((o,), 127.0, device=cuda),
+                             stride=kw.get("stride", (1, 1)),
+                             padding=kw.get("padding", 0), groups=g)
+        want = torch.nn.functional.conv2d(
+            torch.from_numpy(x).double(), torch.from_numpy(w).double(),
+            stride=kw.get("stride", 1), padding=kw.get("padding", 0),
+            groups=g)
+        assert torch.equal(got.cpu().double(), want), (b, c, hw, o, kk)
+
+
+def test_int8_lenet_bucket_replay_equals_the_eager_frozen_model(cuda,
+                                                                tmp_path):
+    """bench_serving's lenet_int8 (LeNet(), PTQ over 4 batches of one
+    bucket-1 input, FLAGS_use_int8_inference, export_for_serving(int8=
+    True)): the program holds one aten._int_mm node per site (5) and no
+    float product; each bucket's captured graph returns the eager frozen
+    model's bits; the graphs and the workers' clones read one set of the
+    loaded int8 buffers; no kernel wrapper launched and no capture after
+    warm-up."""
+    import paddle_tpu_torch as paddle
+    from chip_smoke import FLOAT_PRODUCTS, _port_launches
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.framework.flags import (flags_restore,
+                                                  flags_snapshot, set_flags)
+    from paddle_tpu_torch.quantization import PostTrainingQuantization
+    paddle.seed(0)
+    m = paddle.vision.models.LeNet()
+    cal = torch.from_numpy(np.random.RandomState(0).randn(1, 1, 28, 28)
+                           .astype(np.float32)).to(cuda)
+    PostTrainingQuantization(model=m, data_loader=((cal,) for _ in
+                                                   range(4))).quantize()
+    prefix = str(tmp_path / "lenet")
+    buckets = (1, 2, 4, 8, 16)
+    snap = flags_snapshot()
+    set_flags({"FLAGS_use_int8_inference": True})
+    _port_launches(reset=True)
+    try:
+        man = serving.export_for_serving(
+            m, prefix, [([None, 1, 28, 28], "float32")], buckets=buckets,
+            int8=True)
+        assert man["int8"] and man["mode"] == "poly"
+        srv = serving.Server(serving.ServingConfig(workers=2))
+        srv.register("lenet", prefix, buckets=buckets)
+        srv.start()
+        try:
+            rt = srv._models["lenet"]
+            assert rt.primary.quant_info()["sites"] == 5
+            nodes = [str(n.target) for n in rt.primary._translated.program()
+                     .graph.nodes if n.op == "call_function"]
+            assert sum("_int_mm" in n for n in nodes) == 5
+            assert not [n for n in nodes if FLOAT_PRODUCTS.search(n)]
+            ptrs = [p.data_ptr() for p in rt.primary._translated._params]
+            assert any(p.dtype == torch.int8
+                       for p in rt.primary._translated._params)
+            for w in srv._workers:
+                for clone in w.clones["lenet"].values():
+                    assert [p.data_ptr() for p in
+                            clone._translated._params] == ptrs
+            rng = np.random.RandomState(1)
+            for b in buckets:
+                ex = rt.executables[b]
+                assert ex.captured and graph_kernel_nodes(ex.graph)
+                x = rng.randn(b, 1, 28, 28).astype(np.float32)
+                got = ex.dispatch([x]).fence()
+                with torch.no_grad():
+                    want = m(torch.from_numpy(x).to(cuda))
+                assert np.array_equal(got[0], want.cpu().numpy())
+            assert srv.run("lenet", [x[:3]])[0].shape == (3, 10)
+            assert not any(_port_launches().values())
+            srv.assert_zero_steady_state_recompiles()
+        finally:
+            srv.stop()
+    finally:
+        flags_restore(snap)
 
 
 # -- Wide&Deep on the card (no hand-written kernel: its step is gathers,

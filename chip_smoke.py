@@ -13,7 +13,8 @@ without printing a result:
   2. build    nvcc builds every kernel source of the port; the fused
               conv library's SASS (cuobjdump) holds HGMMA, the tensor
               cores' wgmma, and the flash-attention library's HMMA
-              (mma.sync, its bf16 kernels); the flash-attention and
+              (mma.sync: its bf16 kernels, and HMMA on TF32 operands, its
+              f32 forward); the flash-attention and
               flash-decode libraries spill no register (nvcc -Xptxas -v);
   3. kernels  each decode kernel (B3, B4: one cluster launch a call)
               against its plain PyTorch version on the card at cache
@@ -280,7 +281,8 @@ _T0 = time.perf_counter()
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # the operation rate of each input type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+                  "tfloat32": 495e12}
 
 # tolerances of a kernel against its plain version on the same inputs:
 #  * f32: both compute f32 softmax attention, the kernel in per-rank
@@ -369,14 +371,18 @@ def phase_env(torch):
 
 def _sass_counts(path):
     """The tensor-core instructions in a built library's SASS (cuobjdump
-    -sass): HGMMA (wgmma) and HMMA (mma.sync)."""
+    -sass): HGMMA (wgmma), HMMA (mma.sync) and, of those, HMMA_TF32 (on
+    TF32 operands: B1's f32 forward)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump -sass {path}: {out.stderr}")
     lines = out.stdout.splitlines()
-    return {op: sum(f" {op}." in ln or f" {op} " in ln for ln in lines)
-            for op in ("HGMMA", "HMMA")}
+    counts = {op: sum(f" {op}." in ln or f" {op} " in ln for ln in lines)
+              for op in ("HGMMA", "HMMA")}
+    counts["HMMA_TF32"] = sum(" HMMA." in ln and ".TF32" in ln
+                              for ln in lines)
+    return counts
 
 
 def _spill_bytes(log):
@@ -393,13 +399,17 @@ def phase_build():
     for name in report:
         _build.library(name)
     # B7's bf16 kernel runs on the tensor cores: its library holds wgmma;
-    # B1's and B2's bf16 kernels too, through mma.sync (HMMA)
+    # B1's and B2's bf16 kernels too, through mma.sync (HMMA), and B1's
+    # f32 forward through mma.sync on TF32 operands (split TF32)
     sass = {n: _sass_counts(_build._lib_path(n))
             for n in ("fused_conv", "flash_attention")}
     check(sass["fused_conv"]["HGMMA"] > 0,
           f"fused_conv: no HGMMA in its SASS ({sass['fused_conv']})")
     check(sass["flash_attention"]["HMMA"] + sass["flash_attention"]["HGMMA"]
           > 0, "flash_attention: no tensor-core instruction in its SASS "
+          f"({sass['flash_attention']})")
+    check(sass["flash_attention"]["HMMA_TF32"] > 0,
+          "flash_attention: no TF32 HMMA (the f32 forward) in its SASS "
           f"({sass['flash_attention']})")
     # their accumulators and scores stay in registers at every head_dim
     spills = {n: _spill_bytes(r["log"]) for n, r in report.items()}
@@ -2798,7 +2808,11 @@ def _fa_bound(kind, B, N, Sq, Sk, H, elt, bias_bytes):
     dd) read once, the outputs written once, over HBM bandwidth; against
     the products the kernel does (QK^T and PV; the backward recomputes
     QK^T and does dO V^T, then dS K, or dS^T Q and P^T dO) over the
-    inputs' peak rate.  Non-causal pairs: the training path's case."""
+    peak rate of the instruction that does them: bf16's on the tensor
+    cores; the f32 forward's TF32 on the tensor cores (its split into
+    three TF32 products for each is the kernel's overhead, not the
+    function's work, and is not charged); the f32 backward's f32 FMA
+    rate.  Non-causal pairs: the training path's case."""
     bnh = B * N * H
     rows = B * N * Sq * 4                     # one f32 per query row
     if kind == "fwd":
@@ -2812,7 +2826,9 @@ def _fa_bound(kind, B, N, Sq, Sk, H, elt, bias_bytes):
         ops = 8 * B * N * Sq * Sk * H
     nbytes += bias_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["bfloat16" if elt == 2 else "float32"] * 1e3
+    rate = ("bfloat16" if elt == 2 else "tfloat32" if kind == "fwd"
+            else "float32")
+    t_ops = ops / PEAK_OPS_PER_S[rate] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, ops
 
@@ -3317,9 +3333,9 @@ LIBRARY_ATTENTION = re.compile(r"flash|fmha|sdpa|attention|efficient", re.I)
 
 
 # B1's forward kernels by (mangled) name in a graph and by (demangled)
-# name in a trace: bf16 runs tc::fwd_tc_kernel, f32 the FMA fwd_kernel
-B1_NODE = {"bfloat16": "fwd_tc_kernel", "float32": "10fwd_kernel"}
-B1_RECORD = {"bfloat16": "fwd_tc_kernel<", "float32": "fwd_kernel<"}
+# name in a trace: bf16 runs tc::fwd_tc_kernel, f32 tf::fwd_tf32_kernel
+B1_NODE = {"bfloat16": "fwd_tc_kernel", "float32": "fwd_tf32_kernel"}
+B1_RECORD = {"bfloat16": "fwd_tc_kernel<", "float32": "fwd_tf32_kernel<"}
 
 
 def _dense_graphs(name, rt, layers, b1_dtype="bfloat16"):
@@ -3891,8 +3907,8 @@ def phase_train_profile(torch, step, batch, phase="train_profile"):
     else:
         # the kernels of csrc/flash_attention.cu, by their demangled
         # names: bf16 runs the tensor-core ones (tc::fwd_tc_kernel...),
-        # f32 the FMA ones (fwd_kernel...; flash_decode.cu's are
-        # decode_*_kernel)
+        # f32 tf::fwd_tf32_kernel and the FMA dq_kernel, dkv_kernel
+        # (flash_decode.cu's are decode_*_kernel)
         fa_ev = {k: [e for e in kernels if f"::{k}_kernel<" in e.key
                      or f"::tc::{k}_tc_kernel<" in e.key]
                  for k in ("fwd", "dq", "dkv")}

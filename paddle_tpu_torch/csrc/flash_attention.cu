@@ -5,7 +5,7 @@
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   * `_fwd_kernel` (:67), called by `_flash_fwd_call` (pallas_call :158):
-//     tc::fwd_tc_kernel (bf16) and fwd_kernel (f32) below;
+//     tc::fwd_tc_kernel (bf16) and tf::fwd_tf32_kernel (f32) below;
 //   * `_dq_kernel` (:192) and `_dkv_kernel` (:232), called by
 //     `_flash_bwd_call` (pallas_call :326 and :338): tc::dq_tc_kernel and
 //     tc::dkv_tc_kernel (bf16), dq_kernel and dkv_kernel (f32) below.
@@ -17,8 +17,8 @@
 // k, v and writes o (12.6 MB each) and lse:
 // ~50.7 MB, 15.1 us at 3.35 TB/s, against 3.2 GFLOP, 3.3 us on the bf16
 // tensor cores (989 TF/s): bytes bound it.  The backward moves ~89 MB
-// (26.5 us) against 11.3 GFLOP (11.4 us).  Two sets of kernels, chosen
-// by dtype (a static dispatch, not a fallback):
+// (26.5 us) against 11.3 GFLOP (11.4 us).  Three sets of kernels, chosen
+// by dtype and direction (a static dispatch, not a fallback):
 //
 // bf16, namespace tc: every product on the tensor cores
 // (mma.sync.m16n8k16, bf16 operands, f32 sums), so bytes, not
@@ -51,39 +51,69 @@
 //     column blocks of HO outputs that recompute the same scores, keep the
 //     accumulators in registers unspilled up to H = 256.
 //
-// f32: the first version, f32 FMAs out of shared memory (67 TF/s of f32:
-// the forward's operations alone take 48 us and the backward's 169 us,
-// 3x and 6x above the bytes):
+// f32 forward, namespace tf: split TF32 on the tensor cores.  At the
+// served shape of the int8 BERT program (B*N = 192, S = 128, H = 64) it
+// moves 25.3 MB (7.5 us) against 0.81 GFLOP, 12.0 us at the f32 FMA rate
+// (67 TF/s) but 4.9 us as three TF32 products each (495 TF/s): on the
+// tensor cores bytes bind it.  The structure is tc::fwd_tc_kernel's (4
+// warps of 16 query rows, cp.async double-buffered key tiles of 32, the
+// scores in registers, a branch-free interior path); the products:
+//   * mma.sync.m16n8k8 with TF32 operands and f32 sums.  Each operand x
+//     is split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi),
+//     and a product is lo hi + hi lo + hi hi, the small terms first
+//     (lo lo, ~2^-22 of it, dropped): ~22 bits of each operand, where
+//     one TF32 pass keeps 11 and misses the f32 limit by ~40x;
+//   * tiles stay f32 in shared memory: Q and K rows H + 16 floats apart,
+//     read as 16-byte pieces that feed two k steps each (the depth is
+//     permuted alike for both operands), V rows HO + 4 apart, read a
+//     float at a time, both free of bank conflicts;
+//   * p needs no shuffle to become P V's A operand: the m16n8k8
+//     accumulator holds keys 2c and 2c + 1 of a k step in lane (g, c),
+//     where the A operand wants k = c and c + 4, so the keys of each k
+//     step are permuted (k = c <-> key 2c, k = c + 4 <-> key 2c + 1) and
+//     V's rows read in the same order;
+//   * the tensor cores' adder truncates: a chunk of 16 score columns and
+//     a tile's P V start from zero and are added with f32 adds and FMAs;
+//   * column blocks of HO = 64 outputs (128 at H = 256), the depth walked
+//     one 16-column chunk at a time (not unrolled) and two blocks an SM
+//     keep the accumulators and the split operands in registers,
+//     unspilled (a third block an SM forced spills and was no faster on
+//     an H100; so was splitting K and V once a block into shared hi/lo
+//     tiles: the kernel is not bound by the splits' issue slots).
+//
+// f32 backward: the first version, f32 FMAs out of shared memory (67 TF/s
+// of f32: the backward's operations alone take 169 us at BERT-base, 6x
+// above the bytes):
 //   * the TPU grid's sequential axis ("arbitrary", the k-block sweep)
-//     becomes a loop inside the block.  Forward and dQ: one block per
-//     (batch*head, tile of query rows) sweeping the key tiles; dK/dV: one
-//     block per (batch*head, tile of key rows) sweeping the query tiles.
-//     Each output is written by one block, with no atomics, so gradients
-//     are deterministic (both sets);
-//   * tiles of T = 64 rows (32 for H = 256 in the backward, which holds
-//     four T x H tiles), converted to f32 in shared memory on load, rows
-//     padded by 4 floats so that the strided row reads of a warp hit
-//     distinct banks; 256 threads each own a 4x4 (2x2) block of the
-//     score tile and the matching rows of the T x H accumulators, kept in
-//     registers;
+//     becomes a loop inside the block.  dQ: one block per (batch*head,
+//     tile of query rows) sweeping the key tiles; dK/dV: one block per
+//     (batch*head, tile of key rows) sweeping the query tiles.  Each
+//     output is written by one block, with no atomics, so gradients are
+//     deterministic (all sets, the forward too);
+//   * tiles of T = 64 rows (32 for H = 256, which holds four T x H
+//     tiles), converted to f32 in shared memory on load, rows padded by 4
+//     floats so that the strided row reads of a warp hit distinct banks;
+//     256 threads each own a 4x4 (2x2) block of the score tile and the
+//     matching rows of the T x H accumulators, kept in registers;
 //   * the (S x S) score matrix never reaches device memory: scores, p and
-//     ds live in registers and one T x T shared tile (both sets: the tc
+//     ds live in registers and one T x T shared tile (the tensor-core
 //     kernels keep them in registers only);
 //   * causal: key tiles with no visible column are skipped (forward, dQ),
 //     and query tiles whose last row sees no column of the key tile
-//     (dK/dV), in both sets;
+//     (dK/dV), in all sets;
 //   * ragged tails: rows and columns past Sq or Sk are zero-filled on
-//     load and their p set to 0, so any Sq and Sk are taken (both sets);
+//     load and their p set to 0, so any Sq and Sk are taken (all sets);
 //   * q, k, v, dO and the outputs are addressed by (batch, head, seq)
 //     strides with the head_dim contiguous, so the heads split out of a
 //     (B, S, N*H) projection are read in place, and outputs written as
-//     (B, S, N, H) merge back to (B, S, N*H) without a copy (both sets;
-//     the tc kernels need every stride and start 16-byte aligned and
-//     refuse others: the wrapper copies such a view first).
+//     (B, S, N, H) merge back to (B, S, N*H) without a copy (all sets;
+//     the tensor-core kernels need every stride and start 16-byte
+//     aligned and refuse others: the wrapper copies such a view first).
 //
 // Numerics follow the TPU kernels: f32 scores, softmax state and
 // accumulators; the finite -1e30 causal mask; p rounded to V's dtype
-// before PV (forward) and to dO's before dV, ds to K's before dQ and to
+// before PV (forward; in f32 not at all, and split as every f32 operand
+// of the tensor cores) and to dO's before dV, ds to K's before dQ and to
 // Q's before dK (in bf16 exactly where the tensor cores take their
 // operands); the l == 0 guard (:111-113); lse = m + log(l) in f32,
 // one value per row ((B*N, Sq), not replicated over 8 sublanes as Mosaic
@@ -146,20 +176,6 @@ __device__ __forceinline__ float round_to(float x);
 template <>
 __device__ __forceinline__ float round_to<float>(float x) { return x; }
 
-// max / sum over the 16 threads (tx = 0..15) that share a score row
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // ROWS x H tile of one (batch, head) row block, rows row0.. of a
 // sequence of `nvalid` rows, into f32 shared memory of row stride H + 4;
 // rows past the end are zero-filled.
@@ -188,134 +204,6 @@ __device__ __forceinline__ float logit(const Params& p, const float* bias,
     if (p.causal && row + (p.Sk - p.Sq) < col) x = kNegInf;
   }
   return x;
-}
-
-template <typename T, int H, int TT>
-__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Params p) {
-  constexpr int LD = H + 4, LDS = TT + 4;
-  constexpr int R = TT / 16, HC = H / 64;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // TT x LD
-  float* kv_s = q_s + TT * LD;                    // TT x LD: K, then V
-  float* p_s = kv_s + TT * LD;                    // TT x LDS
-  const int bh = blockIdx.x, b = bh / p.N, n = bh % p.N;
-  const int q0 = blockIdx.y * TT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* qb = static_cast<const T*>(p.q) + b * p.qs.b + n * p.qs.n;
-  const T* kb = static_cast<const T*>(p.k) + b * p.ks.b + n * p.ks.n;
-  const T* vb = static_cast<const T*>(p.v) + b * p.vs.b + n * p.vs.n;
-  const float* bias =
-      p.bias == nullptr ? nullptr : p.bias + b * p.bb + n * p.bn;
-
-  load_tile<T, H, TT>(q_s, qb, p.qs.s, q0, p.Sq);
-  int nk = (p.Sk + TT - 1) / TT;
-  if (p.causal)
-    nk = min(nk, (min(q0 + TT, p.Sq) - 1 + p.Sk - p.Sq) / TT + 1);
-
-  float m[R], l[R], acc[R][HC][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < HC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
-  }
-
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * TT;
-    __syncthreads();            // the last tile's reads of kv_s, p_s
-    load_tile<T, H, TT>(kv_s, kb, p.ks.s, k0, p.Sk);
-    __syncthreads();
-    float s[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-    for (int h = 0; h < H; h += 4) {
-      float4 a[R], c[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * LD + h);
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        c[j] = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * j) * LD + h);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j)
-          s[i][j] += a[i].x * c[j].x + a[i].y * c[j].y + a[i].z * c[j].z +
-                     a[i].w * c[j].w;
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool valid = col < p.Sk && row < p.Sq;
-        s[i][j] = col < p.Sk ? logit(p, bias, s[i][j], row, col, valid)
-                             : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the tile's first column is < Sk, so m_new is finite
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float pj = col < p.Sk ? expf(s[i][j] - m_new) : 0.f;
-        rs += pj;
-        p_s[(ty + 16 * i) * LDS + tx + 16 * j] = round_to<T>(pj);
-      }
-      l[i] = alpha * l[i] + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < HC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
-    }
-    __syncthreads();            // K read, p written
-    load_tile<T, H, TT>(kv_s, vb, p.vs.s, k0, p.Sk);
-    __syncthreads();
-    for (int c = 0; c < TT; ++c) {
-      float pr[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) pr[i] = p_s[(ty + 16 * i) * LDS + c];
-#pragma unroll
-      for (int hh = 0; hh < HC; ++hh) {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            kv_s + c * LD + tx * 4 + 64 * hh);
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          acc[i][hh][0] += pr[i] * vv.x;
-          acc[i][hh][1] += pr[i] * vv.y;
-          acc[i][hh][2] += pr[i] * vv.z;
-          acc[i][hh][3] += pr[i] * vv.w;
-        }
-      }
-    }
-  }
-
-  T* ob = static_cast<T*>(p.out) + b * p.os.b + n * p.os.n;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
-    const float ls = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int hh = 0; hh < HC; ++hh) {
-      float o[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = acc[i][hh][e] / ls;
-      store4(ob + row * p.os.s + tx * 4 + 64 * hh, o);
-    }
-    if (tx == 0)
-      p.lse_out[static_cast<long long>(bh) * p.Sq + row] = m[i] + logf(ls);
-  }
 }
 
 template <typename T, int H, int TT>
@@ -599,19 +487,18 @@ constexpr int bwd_tile() { return H == 256 ? 32 : 64; }
 template <Kind K, int H, int TT>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (K == kFwd ? 2 * TT * (H + 4) + TT * (TT + 4)
-          : K == kDq ? 4 * TT * (H + 4) + TT * (TT + 4)
-                     : 4 * TT * (H + 4) + 2 * TT * (TT + 4) + 2 * TT);
+         (K == kDq ? 4 * TT * (H + 4) + TT * (TT + 4)
+                   : 4 * TT * (H + 4) + 2 * TT * (TT + 4) + 2 * TT);
 }
 
+// the f32 backward (the forward is tf::fwd_tf32_kernel)
 template <Kind K, typename T, int H>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr int TT = K == kFwd ? 64 : bwd_tile<H>();
+  static_assert(K != kFwd, "the f32 forward runs on the tensor cores");
+  constexpr int TT = bwd_tile<H>();
   constexpr size_t smem = smem_bytes<K, H, TT>();
   void (*kern)(Params);
-  if constexpr (K == kFwd)
-    kern = fwd_kernel<T, H, TT>;
-  else if constexpr (K == kDq)
+  if constexpr (K == kDq)
     kern = dq_kernel<T, H, TT>;
   else
     kern = dkv_kernel<T, H, TT>;
@@ -1300,6 +1187,305 @@ cudaError_t launch_h(const Params& p, int B, int H, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32 forward: split TF32 on the tensor cores (mma.sync m16n8k8, f32 sums)
+// ---------------------------------------------------------------------------
+namespace tf {
+
+using tc::kRows;
+using tc::kTcThreads;
+using tc::smem_u32;
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away, in an
+// f32 register whose low 13 bits are 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~22 bits: hi = tf32(x), lo = tf32(x - hi) (x - hi is
+// exact in f32)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b: a 16x8 tf32 (row), b 8x8 tf32 (col), d 16x8 f32.  Lane
+// (g = lane / 4, c = lane % 4) holds a[0..3] at (row, k) = (g, c),
+// (g + 8, c), (g, c + 4), (g + 8, c + 4); b[0..1] at (k, n) = (c, g),
+// (c + 4, g); d as the m16n8k16 accumulator (rows g, g + 8, columns 2c,
+// 2c + 1).  Unlike m16n8k16, d's layout is not a's.
+__device__ __forceinline__ void mma8(float (&d)[4], const uint32_t (&a)[4],
+                                     uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in split TF32: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), the
+// small terms first; lo(a) lo(b), ~2^-22 of the product, is dropped
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma8(d, al, bh0, bh1);
+  mma8(d, ah, bl0, bl1);
+  mma8(d, ah, bh0, bh1);
+}
+
+// R rows of W f32 (columns col0..), rows row0.. of a sequence of
+// `nvalid` rows with row stride ss, into a shared tile of row stride LD
+// floats by cp.async; rows past the end are zero-filled
+template <int W, int LD, int R>
+__device__ __forceinline__ void load_tile(uint32_t tile, const float* base,
+                                          long long ss, int row0, int nvalid,
+                                          int col0) {
+  constexpr int C = W / 4;
+  static_assert(R * C % kTcThreads == 0, "whole passes of the block");
+#pragma unroll
+  for (int it = 0; it < R * C / kTcThreads; ++it) {
+    const int i = threadIdx.x + it * kTcThreads;
+    const int r = i / C, ch = i % C;
+    const bool ok = row0 + r < nvalid;
+    tc::cp16(tile + 4 * (r * LD + 4 * ch),
+             ok ? base + (row0 + r) * ss + col0 + 4 * ch : base, ok);
+  }
+}
+
+// Forward.  One block of 4 warps per (batch*head, 64 query rows, HO of
+// the H output columns), each warp 16 rows; key tiles of BK rows (K, V's
+// HO columns and, for a bias that is one row for all queries, its row)
+// double-buffered by cp.async, tiles kept f32.
+//   S = Q K^T: the depth in chunks of 16 columns; lane (g, c) reads
+//     columns 4c..4c + 3 of its rows of Q and K as one 16-byte load and
+//     feeds them to two k steps (4c, 4c + 1 as k = c, c + 4; then 4c + 2,
+//     4c + 3): the same permutation of the depth for both operands, so
+//     the product is unchanged.  Q and K rows are H + 16 floats apart,
+//     so the 8 lanes of a quarter warp read 8 distinct 16-byte bank
+//     groups.  Each chunk's 6 products start from zero and are added to
+//     the scores with f32 adds: the tensor cores' truncating adder sums
+//     at most 16 columns.
+//   P V: the score fragment is the A operand as it lies once the keys of
+//     a k step are permuted to match, k = c <-> key 2c and k = c + 4 <->
+//     key 2c + 1: lane (g, c) then reads V rows 2c, 2c + 1 at column g,
+//     rows HO + 4 floats apart (conflict free).  Each tile's P V starts
+//     from zero and is added to the accumulator with f32 FMAs.
+// With HO < H each column block computes the same scores and softmax
+// state; the first writes lse.  Two blocks an SM (one at H = 256).
+template <int H, int BK, int HO>
+__global__ void __launch_bounds__(kTcThreads, H == 256 ? 1 : 2)
+    fwd_tf32_kernel(Params p) {
+  constexpr int NT = BK / 8, NO = HO / 8;
+  constexpr int LDK = H + 16, LDV = HO + 4;
+  constexpr uint32_t QB = kRows * LDK * 4, KB = BK * LDK * 4;
+  constexpr uint32_t VB = BK * LDV * 4;
+  constexpr uint32_t STAGE = KB + VB + BK * 4;     // K, V, bias row
+  extern __shared__ __align__(128) unsigned char tf_smem[];
+  const uint32_t q_s = smem_u32(tf_smem);
+  const float* smf = reinterpret_cast<const float*>(tf_smem);
+  const int bh = blockIdx.x, b = bh / p.N, n = bh % p.N;
+  const int q0 = blockIdx.y * kRows, h0 = blockIdx.z * HO;
+  const int lane = threadIdx.x & 31, wr = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, c = lane & 3;
+  const float* qb = static_cast<const float*>(p.q) + b * p.qs.b + n * p.qs.n;
+  const float* kb = static_cast<const float*>(p.k) + b * p.ks.b + n * p.ks.n;
+  const float* vb = static_cast<const float*>(p.v) + b * p.vs.b + n * p.vs.n;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.bb + n * p.bn;
+  const bool brow = bias != nullptr && p.bq == 0;  // BERT's padding mask
+  auto stage = [&](int t) { return QB + (t & 1) * STAGE; };
+  auto load_kv = [&](int t) {
+    const uint32_t at = q_s + stage(t);
+    load_tile<H, LDK, BK>(at, kb, p.ks.s, t * BK, p.Sk, 0);
+    load_tile<HO, LDV, BK>(at + KB, vb, p.vs.s, t * BK, p.Sk, h0);
+    if (brow) tc::load_row<BK>(at + KB + VB, bias, p.bk, t * BK, p.Sk);
+  };
+
+  int nk = (p.Sk + BK - 1) / BK;
+  if (p.causal)
+    nk = min(nk, (min(q0 + kRows, p.Sq) - 1 + p.Sk - p.Sq) / BK + 1);
+  load_tile<H, LDK, kRows>(q_s, qb, p.qs.s, q0, p.Sq, 0);
+  load_kv(0);
+  tc::cp_commit();
+
+  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const float* qa = smf + (wr + g) * LDK + 4 * c;   // rows g, g + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk) {           // tile t + 1 loads while tile t computes
+      load_kv(t + 1);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * BK;
+    const float* ks = smf + stage(t) / 4 + g * LDK + 4 * c;
+    const float* vs = smf + (stage(t) + KB) / 4 + 2 * c * LDV + g;
+    const float* brow_s = brow ? smf + (stage(t) + KB + VB) / 4 : nullptr;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+    for (int u = 0; u < H / 16; ++u) {
+      const float4 x0 = *reinterpret_cast<const float4*>(qa + 16 * u);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(qa + 8 * LDK + 16 * u);
+      uint32_t ah[2][4], al[2][4];
+      split(x0.x, ah[0][0], al[0][0]);
+      split(x1.x, ah[0][1], al[0][1]);
+      split(x0.y, ah[0][2], al[0][2]);
+      split(x1.y, ah[0][3], al[0][3]);
+      split(x0.z, ah[1][0], al[1][0]);
+      split(x1.z, ah[1][1], al[1][1]);
+      split(x0.w, ah[1][2], al[1][2]);
+      split(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 y =
+            *reinterpret_cast<const float4*>(ks + 8 * j * LDK + 16 * u);
+        uint32_t bh[4], bl[4];
+        split(y.x, bh[0], bl[0]);
+        split(y.y, bh[1], bl[1]);
+        split(y.z, bh[2], bl[2]);
+        split(y.w, bh[3], bl[3]);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3(part, ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+        mma3(part, ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += part[e];
+      }
+    }
+    tc::logits_q(s, p, bias, brow_s, k0, q0, row, c);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      // the 4 lanes of a quad hold the row's columns
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // the tile's first column is < Sk, so m_new is finite
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pj = expf(s[j][2 * i + e] - m_new);  // 0 past Sk
+          rs += pj;
+          s[j][2 * i + e] = pj;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[i] = alpha[i] * l[i] + rs;
+      m[i] = m_new;
+    }
+    // p as A operands, split, in the permuted key order: (g, key 2c),
+    // (g + 8, key 2c), (g, key 2c + 1), (g + 8, key 2c + 1) of each k step
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      split(s[kk][0], ph[kk][0], pl[kk][0]);
+      split(s[kk][2], ph[kk][1], pl[kk][1]);
+      split(s[kk][1], ph[kk][2], pl[kk][2]);
+      split(s[kk][3], ph[kk][3], pl[kk][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(vs[8 * kk * LDV + 8 * j], bh0, bl0);
+        split(vs[(8 * kk + 1) * LDV + 8 * j], bh1, bl1);
+        mma3(o, ph[kk], pl[kk], bh0, bh1, bl0, bl1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] * alpha[e >> 1] + o[e];
+    }
+    __syncthreads();            // stage t & 1 is refilled at t + 2
+  }
+
+  const float ls[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
+  const float inv[2] = {1.f / ls[0], 1.f / ls[1]};
+  float* ob = static_cast<float*>(p.out) + b * p.os.b + n * p.os.n + h0 +
+              2 * c;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (row[i] < p.Sq)
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<float2*>(ob + row[i] * p.os.s + 8 * j) =
+            make_float2(acc[j][2 * i] * inv[i], acc[j][2 * i + 1] * inv[i]);
+  if (c == 0 && h0 == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < p.Sq)
+        p.lse_out[static_cast<long long>(bh) * p.Sq + row[i]] =
+            m[i] + logf(ls[i]);
+}
+
+// f32 rows the kernel copies in 16-byte pieces
+bool rows16(const void* ptr, const Str& s) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s.b % 4 == 0 &&
+         s.n % 4 == 0 && s.s % 4 == 0;
+}
+
+template <int H>
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  // key steps of 32; column blocks of 64 (128 at H = 256) keep the f32
+  // accumulators (16 x HO a warp) and the split operands in registers,
+  // unspilled (ptxas -v)
+  constexpr int BK = 32;
+  constexpr int HO = H == 256 ? 128 : 64;
+  constexpr size_t smem =
+      4 * (kRows * (H + 16) + 2 * (BK * (H + 16) + BK * (HO + 4) + BK));
+  auto kern = fwd_tf32_kernel<H, BK, HO>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid(B * p.N, (p.Sq + kRows - 1) / kRows, H / HO);
+  kern<<<grid, kTcThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_h(const Params& p, int B, int H, cudaStream_t stream) {
+  // the wrapper copies a misaligned view; one that reaches here is refused
+  if (!rows16(p.q, p.qs) || !rows16(p.k, p.ks) || !rows16(p.v, p.vs) ||
+      !rows16(p.out, p.os))
+    return cudaErrorMisalignedAddress;
+  switch (H) {
+    case 64: return launch<64>(p, B, stream);
+    case 128: return launch<128>(p, B, stream);
+    case 256: return launch<256>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tf
+
 template <Kind K>
 int run(Params p, const long long* d, int dtype, void* stream) {
   const int B = static_cast<int>(d[0]), H = static_cast<int>(d[4]);
@@ -1321,7 +1507,11 @@ int run(Params p, const long long* d, int dtype, void* stream) {
   p.bk = d[29];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_h<K, float>(p, B, H, s);
+    case 0:
+      if constexpr (K == kFwd)
+        return tf::launch_h(p, B, H, s);
+      else
+        return launch_h<K, float>(p, B, H, s);
     case 1: return tc::launch_h<K>(p, B, H, s);
     default: return cudaErrorInvalidValue;
   }
@@ -1329,9 +1519,10 @@ int run(Params p, const long long* d, int dtype, void* stream) {
 
 }  // namespace
 
-// dtype codes of q, k, v, dO and every output: 0 f32 (the FMA kernels),
-// 1 bf16 (the tensor-core kernels, which return cudaErrorMisalignedAddress
-// without launching for a start or stride that is not 16-byte aligned).
+// dtype codes of q, k, v, dO and every output: 0 f32 (the split-TF32
+// forward, the FMA backward), 1 bf16 (the tensor-core kernels).  The
+// tensor-core kernels return cudaErrorMisalignedAddress without launching
+// for a start or stride that is not 16-byte aligned.
 // bias is f32 or null.
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, const void* bias,

@@ -31,7 +31,9 @@ operators; :func:`flash_attention` calls the forward one, whose gradient
 
 The dtype picks the kernel: bf16 runs the tensor-core kernels
 (``mma.sync``, p and ds rounded to bf16 where they become operands,
-exactly as the plain versions round them), f32 the FMA kernels.  On
+exactly as the plain versions round them); f32 runs the forward on the
+tensor cores in split TF32 (each f32 operand taken as two TF32 halves,
+three products summed in f32) and the backward as f32 FMAs.  On
 CUDA nothing falls back: a head_dim the kernels are not built for (64,
 128, 256) or a dtype other than f32/bf16 raises, and a view whose start
 or strides are not 16-byte aligned is copied first.
@@ -172,8 +174,8 @@ def _bias4(bias, B, N, Sq, Sk):
 def _strided(t, dtype, name):
     """``t`` in the layout the kernels read: head_dim contiguous, the
     other strides and the start multiples of 16 bytes (f32: 4 elements,
-    which the FMA kernels load in one access; bf16: 8, the 16-byte rows
-    the tensor-core kernels copy with cp.async).  A tensor in another
+    bf16: 8; the tensor-core kernels copy 16-byte pieces of rows with
+    cp.async, the f32 backward loads 4 floats in one access).  A tensor in another
     layout is copied into fresh memory, contiguous and aligned."""
     if t.dtype != dtype:
         raise TypeError(f"flash_attention: {name} has dtype {t.dtype}, "

@@ -153,6 +153,80 @@ def test_plain_versions_match_jax_calls_on_jax_lse(causal, bias_shape):
                                    np.asarray(b), err_msg=f"d{name}", **GRAD)
 
 
+
+# -- the f32 forward kernel's arithmetic: split TF32 ---------------------------
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest,
+    ties away from zero, at the 13th bit from the bottom of the f32."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, split=True):
+    """a @ b as the kernel's tensor-core products form it: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), the three products
+    lo hi + hi lo + hi hi summed in f32, the small terms first (lo lo is
+    dropped); ``split`` False: one TF32 product, hi hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    return (_tf32(a - ah) @ bh + ah @ _tf32(b - bh)) + ah @ bh
+
+
+def _fwd_tf32(q, k, v, bias, causal, split=True):
+    """The f32 forward kernel's algorithm on (B, N, S, H) CPU tensors:
+    key tiles of 32, the scores' depth in chunks of 16 columns whose
+    products are added in f32, an online softmax in f32 with the finite
+    causal mask, each tile's P V added to the accumulator, o = acc / l."""
+    B, N, Sq, H = q.shape
+    Sk = k.shape[2]
+    scale = 1.0 / np.sqrt(H)
+    m = torch.full((B, N, Sq, 1), -np.inf)
+    l = torch.zeros(B, N, Sq, 1)
+    acc = torch.zeros(B, N, Sq, H)
+    keep = torch.ones(Sq, Sk, dtype=torch.bool).tril(Sk - Sq)
+    for k0 in range(0, Sk, 32):
+        kt, vt = k[:, :, k0:k0 + 32], v[:, :, k0:k0 + 32]
+        s = torch.zeros(B, N, Sq, kt.shape[2])
+        for h0 in range(0, H, 16):
+            s = s + _mm_tf32(q[..., h0:h0 + 16],
+                             kt[..., h0:h0 + 16].transpose(-1, -2), split)
+        s = s * scale
+        if bias is not None:
+            s = s + bias[..., k0:k0 + 32]
+        if causal:
+            s = s.masked_fill(~keep[:, k0:k0 + 32], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm_tf32(p, vt, split)
+        m = m_new
+    return acc / l
+
+
+@pytest.mark.parametrize("H,causal", [(64, False), (128, True),
+                                      (256, False)])
+def test_split_tf32_forward_meets_the_f32_limit(H, causal):
+    """The f32 forward kernel's split-TF32 arithmetic, emulated, against
+    JAX's Pallas kernel (interpret mode) under a padding bias: within the
+    kernel's f32 limit, 1e-5 of max(1, max|ref|), which one TF32 pass
+    (~4e-4) misses.  On the card the tensor cores' adder truncates where
+    this emulation rounds, which the kernel bounds by summing at most 16
+    columns (scores) or 32 keys (P V) there; the card's kernel is held to
+    the same limit in tests/test_torch_kernels_gpu.py."""
+    B, N, S = 1, 2, 128
+    q, k, v = _arrays(20 + H, *[(B, N, S, H)] * 3)
+    bias = np.zeros((B, 1, 1, S), np.float32)
+    bias[..., 100:] = -1e4
+    want = _jax(q, k, v, bias, causal)[0]
+    limit = 1e-5 * max(1.0, np.abs(want).max())
+    t = [torch.from_numpy(x) for x in (q, k, v, bias)]
+    err = {split: np.abs(_fwd_tf32(*t, causal, split).numpy() - want).max()
+           for split in (True, False)}
+    assert err[True] <= limit, err
+    assert err[False] > limit, err
+
 def test_supports_gate_matches_jax():
     shapes = [((2, 4, 256, 64), (2, 4, 256, 64), None, False),
               ((2, 4, 200, 64), (2, 4, 256, 64), None, False),

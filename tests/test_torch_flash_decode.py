@@ -151,3 +151,48 @@ def test_cpu_calls_do_not_count_as_launches():
     tfd.flash_decode_quant(_t(q), k8, k8, ks, ks, _t(lo), _t(hi))
     assert (tfd.flash_decode.launches,
             tfd.flash_decode_quant.launches) == before
+
+
+# the verify block: T = 5 queries a (batch, head) row, each with its own
+# window end; row 0's ends repeat and fall back, row 1's leave the JAX
+# kernel's first split (and two of the port's four cluster ranks) empty
+BLOCK_START = [3, 140]
+BLOCK_END = [[200, 200, 180, 256, 41], [141, 256, 160, 160, 150]]
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_block_plain_version_equals_one_query_jax_calls(kind):
+    """The block form's plain version (the function the block kernel
+    computes) against T calls of JAX's Pallas kernel in interpret mode,
+    one a query at its window end.  f32 and int8 at ATOL; bf16 at 1e-2,
+    one bf16 step at |out| < 2, as above."""
+    B, N, S, H, T = 2, 2, 256, 64, 5
+    rng = np.random.RandomState(11)
+    q, k, v = (rng.randn(*shape).astype(np.float32)
+               for shape in ((B, N, T, H), (B, N, S, H), (B, N, S, H)))
+    lo = np.asarray(BLOCK_START, np.int32)
+    hi = np.asarray(BLOCK_END, np.int32)
+    if kind == "int8":
+        k8, ks = quantize_kv_rows(torch.from_numpy(k))
+        v8, vs = quantize_kv_rows(torch.from_numpy(v))
+        got = tfd.flash_decode_quant_block(_t(q), k8, v8, ks, vs, _t(lo),
+                                           _t(hi))
+        jk8, jks, jv8, jvs = (jnp.asarray(t.numpy())
+                              for t in (k8, ks, v8, vs))
+        one = lambda jq, e: jfd.flash_decode_quant_fn(
+            jq, jk8, jv8, jks, jvs, _j(lo), e, block_k=128)
+    else:
+        dt = torch.float32 if kind == "f32" else torch.bfloat16
+        tq, tk, tv = (torch.from_numpy(a).to(dt) for a in (q, k, v))
+        got = tfd.flash_decode_block(tq, tk, tv, _t(lo), _t(hi))
+        jdt = jnp.float32 if kind == "f32" else jnp.bfloat16
+        q, jk, jv = (jnp.asarray(t.float().numpy()).astype(jdt)
+                     for t in (tq, tk, tv))
+        one = lambda jq, e: jfd.flash_decode_fn(jq, jk, jv, _j(lo), e,
+                                                block_k=128)
+    assert got.shape == (B, N, T, H)
+    for t in range(T):
+        want = one(jnp.asarray(q)[:, :, t:t + 1],
+                   jnp.asarray(hi[:, t].copy()))
+        _close(got[:, :, t:t + 1].float(), np.asarray(want, np.float32),
+               atol=1e-2 if kind == "bf16" else ATOL)

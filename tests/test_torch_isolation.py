@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no file of ``paddle_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes`` (the
+"""The PyTorch port stands alone: no file of ``paddle_tpu_torch`` and
+neither ``chip_smoke.py`` nor ``attention_ab.py`` imports JAX, the JAX package or ``ml_dtypes`` (the
 card's machine has none of them), the package imports with all three
 made unimportable, and its entry points refuse to run on the CPU unless
 the caller asks for it."""
@@ -26,7 +26,8 @@ BANNED = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 def _port_sources():
     pkg = os.path.join(ROOT, "paddle_tpu_torch")
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in ("attention_ab.py",
+                                            "chip_smoke.py")]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -44,7 +45,7 @@ def _imported_roots(path):
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_sources()
-    assert len(files) > 20 and os.path.exists(files[0])
+    assert len(files) > 20 and all(map(os.path.exists, files[:2]))
     for new in ("quantization/ptq.py", "quantization/freeze.py",
                 "ops/int8.py"):
         assert os.path.join(ROOT, "paddle_tpu_torch", new) in files
@@ -292,3 +293,35 @@ def test_int8_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
         flags_restore(snap)
     with pytest.raises(PreconditionNotMetError):
         serving.Server().register("lenet", prefix)
+
+
+def test_attention_ab_needs_cuda_and_its_helpers_exist(monkeypatch):
+    """attention_ab.py (the attention kernels of this checkout timed
+    against another checkout's) refuses to run without a card, and every
+    name it takes from chip_smoke.py and the port exists, so that a change
+    to those helpers cannot leave it broken unseen."""
+    import importlib
+
+    import attention_ab
+    import chip_smoke
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    tree = ast.parse(open(attention_ab.__file__).read())
+    mods = {"cs": chip_smoke, "_build": _build, "fa": fa, "fd": fd}
+    used = {(n.value.id, n.attr) for n in ast.walk(tree)
+            if isinstance(n, ast.Attribute)
+            and isinstance(n.value, ast.Name) and n.value.id in mods}
+    assert {("cs", "_graph_ms"), ("cs", "_fa_bound"), ("_build", "_LIBS"),
+            ("fd", "flash_decode_quant_block")} <= used
+    assert [u for u in sorted(used) if not hasattr(mods[u[0]], u[1])] == []
+    assert isinstance(_build._LIBS, dict)
+    imports = [(n.module, a.name) for n in ast.walk(tree)
+               if isinstance(n, ast.ImportFrom) and n.level == 0
+               and n.module.startswith("paddle_tpu_torch")
+               for a in n.names]
+    assert len(imports) >= 4
+    for module, name in imports:
+        assert hasattr(importlib.import_module(module), name), (module, name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert attention_ab.main(["--other", ROOT]) == 1

@@ -230,6 +230,19 @@ FA_CASES = {
     "cross_96x40_pad_bias": (2, 4, 96, 40, 64, False, (2, 1, 1, 40)),
     "cross_40x96": (2, 4, 40, 96, 64, False, None),
     "s64_square_mask": (2, 4, 64, 64, 64, False, "square"),
+    # the model's strided views of (B, S, N*H) projections ("bsnh"): the
+    # int8 BERT program's served f32 shape, BERT's padding row (B, 1, 1,
+    # Sk) of 0 and -1e4 ("pad"), Transformer-big's causal S = 64; and
+    # ragged, causal cross and biased shapes at every head_dim (the f32
+    # forward's split-TF32 tiles and column blocks)
+    "served_bsnh": (16, 12, 128, 128, 64, False, None, "bsnh"),
+    "bert_pad_bias_bsnh": (8, 12, 128, 128, 64, False, "pad", "bsnh"),
+    "seq2seq_causal_bsnh": (4, 16, 64, 64, 64, True, None, "bsnh"),
+    "h128_full_bias_s200": (2, 2, 200, 200, 128, False, (2, 2, 200, 200)),
+    "h256_causal_cross_pad": (1, 2, 77, 200, 256, True, "pad"),
+    "h64_causal_cross": (2, 3, 64, 96, 64, True, None),
+    "ragged_17x33_h128": (2, 2, 17, 33, 128, False, (2, 1, 1, 33)),
+    "ragged_77_h256_shared_bias": (1, 3, 77, 77, 256, False, (1, 1, 77, 77)),
 }
 
 
@@ -253,18 +266,31 @@ FA_TC_CASES = {
 
 
 def _fa_case(name, dev, dtype, seed=0):
-    B, N, Sq, Sk, H, causal, bshape = {**FA_CASES, **FA_TC_CASES}[name]
+    B, N, Sq, Sk, H, causal, bshape, *layout = \
+        {**FA_CASES, **FA_TC_CASES}[name]
     rng = np.random.RandomState(seed)
-    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    if layout == ["bsnh"]:
+        t = lambda B, N, S, H: torch.from_numpy(rng.randn(B, S, N * H).astype(
+            np.float32)).view(B, S, N, H).transpose(1, 2)
+    else:
+        t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
     q, k, v = t(B, N, Sq, H), t(B, N, Sk, H), t(B, N, Sk, H)
     do = t(B, N, Sq, H)
     bias = None
     if bshape == "square":
         bias = torch.from_numpy(np.triu(np.full((1, 1, Sq, Sk), -1e30,
                                                 np.float32), 1)).to(dev)
+    elif bshape == "pad":
+        lens = rng.randint(Sk // 2, Sk + 1, B)
+        bias = torch.from_numpy(np.where(
+            np.arange(Sk)[None] < lens[:, None], 0.0, -1e4).astype(
+                np.float32)[:, None, None]).to(dev)
     elif bshape is not None:
         bias = torch.from_numpy(np.where(rng.rand(*bshape) < 0.2, -1e4,
                                          0.0).astype(np.float32)).to(dev)
+    if layout == ["bsnh"]:       # the same strided views on the card
+        return ([x.transpose(1, 2).contiguous().to(dev, dtype)
+                 .transpose(1, 2) for x in (q, k, v, do)], bias, causal)
     return ([x.to(dev, dtype) for x in (q, k, v, do)], bias, causal)
 
 
@@ -348,18 +374,41 @@ def test_flash_attention_tensor_core_kernels_match_plain_versions(cuda,
     torch.testing.assert_close(o.float(), o32, atol=1e-2, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", ["s200_h256_causal_pad_bias",
                                   "cross_causal_128x384_pad_bias",
                                   "h128_pad_bias", "s128_h64"])
-def test_flash_attention_tensor_core_kernels_repeat_bit_for_bit(cuda, name):
+def test_flash_attention_tensor_core_kernels_repeat_bit_for_bit(cuda, name,
+                                                                dtype):
     """One writer per output, fixed-order sums, no atomics: two launches
-    on one input give the same bits."""
-    (q, k, v, do), bias, causal = _fa_case(name, cuda, torch.bfloat16,
-                                           seed=3)
+    on one input give the same bits (f32: the split-TF32 forward and the
+    FMA backward)."""
+    (q, k, v, do), bias, causal = _fa_case(name, cuda, dtype, seed=3)
     first, _ = _fa_run(q, k, v, do, bias, causal)
     again, _ = _fa_run(q, k, v, do, bias, causal)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["served_bsnh", "bert_pad_bias_bsnh",
+                                  "seq2seq_causal_bsnh", "h128_full_bias_s200",
+                                  "h256_causal_cross_pad"])
+def test_flash_attention_f32_backward_takes_the_kernel_forward(cuda, name):
+    """The f32 backward kernels (B2, FMA) fed the f32 forward kernel's o
+    and lse (split TF32) stay within their limit of the plain backward on
+    the plain forward's."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    (q, k, v, do), bias, causal = _fa_case(name, cuda, torch.float32, seed=1)
+    o, lse = fa.flash_fwd(q, k, v, bias, causal)
+    dd = fa.flash_dd(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, bias, lse, do, dd, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, bias, lse, do, dd, causal)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, bias, causal)
+    want = fa.flash_bwd_reference(q, k, v, bias, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        assert _max_rel(got, ref) <= FA_TOL[torch.float32]
 
 
 def test_flash_attention_bf16_misaligned_views_are_copied_not_misread(cuda):
@@ -872,14 +921,28 @@ def test_mid_generation_resume_writes_the_graph_inputs(cuda, spec):
 
 # -- the verify block: B3/B4's query-block form -------------------------------
 
+def _block_ends(T, S, start, dev, seed):
+    """Per-query ends [3, T] of a verify block: row 0 pos + t + 1 at pos
+    = S - 2, the later ends past the cache's end (as at a ring's end);
+    row 1 ends drawn at random (repeated, falling back); row 2 one end
+    for every query, 3 columns past its start, so that all cluster ranks
+    but one have an empty window."""
+    rng = np.random.RandomState(seed)
+    ends = np.stack([S - 1 + np.arange(T),
+                     rng.randint(int(start[1]) + 1, S + 1, T),
+                     np.full(T, int(start[2]) + 3)])
+    return torch.from_numpy(ends.astype(np.int32)).to(dev)
+
+
 @pytest.mark.parametrize("S", [256, 768])
-@pytest.mark.parametrize("T", [2, 5])
+@pytest.mark.parametrize("T", [1, 2, 5, 8, 12])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 def test_block_form_equals_single_query_launches(cuda, kind, T, S):
     """Each query row of one block launch equals a one-query launch with
-    its window, bit for bit, over full, ragged and late windows (the last
-    query's end past S, as at a ring's end); and the block stays within
-    the one-query limits of its plain version."""
+    its window, bit for bit, over ends that run past the cache's end, ends
+    that repeat and fall back, and one end that leaves all ranks but one
+    empty; and the block stays within the one-query limits of its plain
+    version."""
     dtype = torch.float32 if kind == "f32" else torch.bfloat16
     B, N, H = 3, 4, 64
     rng = np.random.RandomState(S + T)
@@ -889,9 +952,7 @@ def test_block_form_equals_single_query_launches(cuda, kind, T, S):
     k8, ks = quantize_kv_rows(k)
     v8, vs = quantize_kv_rows(v)
     start = torch.tensor([0, 37, S // 2], dtype=torch.int32, device=cuda)
-    pos = torch.tensor([S - T, S // 2, S - 2], dtype=torch.int32,
-                       device=cuda)
-    end = (pos[:, None] + 1 + torch.arange(T, device=cuda)).int()
+    end = _block_ends(T, S, start.cpu().numpy(), cuda, S * T)
     if kind == "int8":
         fn = lambda qq, e: fd.flash_decode_quant_block(qq, k8, v8, ks, vs,
                                                        start, e)

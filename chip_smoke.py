@@ -125,6 +125,32 @@ without printing a result:
   7. e2e      kernel against plain end to end: f32 generate() with
               FLAGS_use_flash_decode on and off gives equal tokens and
               last logits within 1e-4;
+  7b. decode_int8  bench_decode at its chip configuration (bench.py:
+              1096-1104: vocab 32000, GPT-2 small's widths, random weights
+              from --seed; prompt 128, 128 new tokens, batches 1 and 8,
+              buckets 128/256/512): the bf16 variant (amp.decorate
+              O2, the tied head following the embedding) and the int8 one (f32, PTQ over 4 batches of one
+              RandomState(0) prompt, frozen: 72 int8 sites) timed as
+              bench.py times them (prefill and decode apart, best of 3;
+              decode tok/s at batch 1 and 8, the int8/bf16 speedup at
+              batch 8), B3 launched 12 x 128 a generate(); a profiled
+              one-step decode(); the serving phase's 16 requests through
+              register_decode (rows = batch-1 generate()); every row of a
+              batch-8 generate() of the first 8 of them equals its
+              batch-1 generate() with the f32 cache (the server check's
+              rows) and with the int8 one (B4, f32 query); every int8
+              product of a
+              prefill and a step equals the exact one on the CPU and the
+              LM head is the only float GEMM; the card against the port on
+              the CPU over a prefill and 3 steps, free (reported) and
+              with the CPU on the card's activation codes (each within
+              one step of its own; logits within DECODE_PINNED_RTOL);
+              16 churn
+              requests through the slot loop, f32 then int8 KV (rows
+              held as in the slots phase, every step a replay of a graph
+              of 12 decode nodes, captured step = eager step); B3 f32
+              and B4 f32-query at the served shape against their plain
+              versions, timed beside them, SDPA f32 and the bound;
   8. fa_kernels  the flash-attention kernels (forward B1, backward B2:
               dQ and dK/dV) against their plain versions in f32 and bf16
               over head_dims 64/128/256, lengths 128, 200, 256, 64 and
@@ -818,12 +844,15 @@ def _traffic(seed, vocab, n=REQUESTS, lo=16, hi=SEQ_BUCKETS[0]):
     return [rng.randint(0, vocab, int(n)).astype(np.int32) for n in lens]
 
 
-def _serve_once(torch, model, prompts, kv, grid, one_request=False):
+def _serve_once(torch, model, prompts, kv, grid, one_request=False,
+                tag="serving", oracle_rows=None):
     """Serve ``prompts``, one request each (or all in one request), and
-    hold the launch counts and the served rows.  Every served row must
-    equal its prompt's batch-1 generate() (the serving path's GEMMs are
-    row-invariant: batch_invariant_linear); the rows of one request, which
-    form one batch, must also equal generate() of that batch."""
+    hold the launch counts and the served rows, logged under ``tag``.
+    Every served row must equal its prompt's batch-1 generate() (the
+    serving path's GEMMs are row-invariant: cached_linear); the rows of
+    one request, which form one batch, must also equal generate() of
+    that batch.  ``oracle_rows``, a list, receives each prompt's batch-1
+    generate() row."""
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.ops.kernels import flash_decode as fd
@@ -887,7 +916,10 @@ def _serve_once(torch, model, prompts, kv, grid, one_request=False):
         check(bool((got >= 0).all() and (got < model.config.vocab_size)
                    .all()), f"kv={kv}: row {i} token out of range")
         one = oracle.generate(p[None, :], max_new_tokens=steps)
-        diff = np.nonzero(one.cpu().numpy()[0] != got[0])[0]
+        one = one.cpu().numpy()[0]
+        if oracle_rows is not None:
+            oracle_rows.append(one)
+        diff = np.nonzero(one != got[0])[0]
         equal += diff.size == 0
         check(diff.size == 0,
               f"kv={kv}: row {i} (prompt {p.size}) differs from batch-1 "
@@ -911,7 +943,7 @@ def _serve_once(torch, model, prompts, kv, grid, one_request=False):
            "rows_equal_batch1_generate": f"{equal}/{len(prompts)}"}
     if one_request:
         out["rows_equal_generate_of_their_batch"] = True
-    log("serving", **out)
+    log(tag, **out)
     return out
 
 
@@ -966,13 +998,13 @@ def _plain_serving_gemms():
     import torch.nn.functional as F
     from paddle_tpu_torch.nn.layer import transformer
     from paddle_tpu_torch.text.models import gpt
-    names = ((transformer, "pad_rows"), (transformer, "rows_linear"),
-             (transformer, "batch_invariant_linear"),
-             (gpt, "batch_invariant_linear"))
+    names = ((transformer, "cached_linears"), (transformer, "cached_linear"),
+             (transformer, "cached_ffn"), (gpt, "batch_invariant_linear"))
     saved = [getattr(m, n) for m, n in names]
-    plain = {"pad_rows": lambda x: (x.reshape(-1, x.shape[-1]),
-                                    x.numel() // x.shape[-1]),
-             "rows_linear": lambda x, w, b=None: F.linear(x, w, b),
+    plain = {"cached_linears": lambda x, *layers: tuple(m(x)
+                                                        for m in layers),
+             "cached_linear": lambda x, layer: layer(x),
+             "cached_ffn": lambda x, l1, mid, l2: l2(mid(l1(x))),
              "batch_invariant_linear": lambda x, w, b=None: F.linear(x, w,
                                                                      b)}
     for m, n in names:
@@ -1338,9 +1370,11 @@ def _graph_nodes(graph, match):
     return grids, kernels
 
 
-def _step_profile(torch, run, calls=20, per_trace=None):
+def _step_profile(torch, run, calls=20, per_trace=None, ms_of=None):
     """Host ms per ``run(i)`` call (no profiler), then device busy ms,
-    kernels and decode-kernel records per call under torch.profiler, in
+    kernels and decode-kernel records per call under torch.profiler
+    (and, for each ``name: regex`` of ``ms_of``, the device ms a call of
+    the kernels whose name matches, as ``name``), in
     traces of ``per_trace`` calls each (default: one trace), with the
     decode records by grid (``_decode_grids``) and, for a captured step,
     by graph launch (``_records_by_launch``, held against the graph's
@@ -1394,7 +1428,10 @@ def _step_profile(torch, run, calls=20, per_trace=None):
                              "ms_per_step": round(dev_us[k] / 1e3 / calls,
                                                   4)}
                             for k in sorted(dev_us, key=lambda k:
-                                            -dev_us[k])[:6]]}
+                                            -dev_us[k])[:6]],
+            **{name: round(sum(us for k, us in dev_us.items()
+                               if re.search(rx, k)) / 1e3 / calls, 4)
+               for name, rx in (ms_of or {}).items()}}
 
 
 def phase_slots(torch, model, seed):
@@ -2720,6 +2757,518 @@ def phase_e2e(torch, seed):
           f"e2e: last logits differ by {err} > 1e-4")
     log("e2e", dtype="float32", prompts=len(prompts), new_tokens=steps,
         tokens_equal=True, last_logits_max_abs_err=err, atol=1e-4)
+
+
+# -- phase 7b: bench_decode's int8 variant, a frozen-int8 GPT ---------------
+
+# bench_decode's chip configuration (bench.py:1096-1104): a GPT of 32,000
+# tokens at GPT-2 small's widths, 128-token prompts, 128 new tokens,
+# batches 1 and 8, cache buckets (128, 256, 512) up to 512, each timing
+# the best of 3.  Its int8 variant is the f32 model, PTQ-calibrated
+# (abs_max) over 4 batches of one RandomState(0) prompt and frozen: not
+# amp-decorated, so its layers, activations and ring cache stay f32 and
+# every decode step runs B3's f32 instance (B4 with an f32 query under
+# FLAGS_kv_cache_dtype=int8).  Its bf16 variant is the same weights cast
+# by amp.decorate(level="O2").  Nothing is cut
+DECODE_CFG = dict(vocab_size=32000, hidden_size=768, num_layers=12,
+                  num_heads=12, intermediate_size=3072,
+                  max_position_embeddings=1024, dropout=0.0)
+DECODE = dict(prompt=128, steps=128, batches=(1, 8),
+              seq_buckets=(128, 256, 512), max_len=512, reps=3)
+# the frozen sites of a layer; the tied LM head (wte) stays float
+DECODE_SITES = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                "self_attn.out_proj", "linear1", "linear2")
+# the card against the port on the CPU: the prefill and this many steps,
+# fed the card's tokens.  The products are exact on both and the float
+# layers between the sites round an ulp apart; an input that lands within
+# an ulp of a half step is coded one step apart at the next site, which
+# moves every input of the sites after it by more than an ulp, and over
+# 72 sites the two runs drift apart by the quantization noise itself
+# (2.1-2.6% of max |logit| on an H100, against the dense phase's 2^-6 for
+# LeNet and the block).  So the drift is reported, and the check runs the
+# CPU on the card's activation codes: every CPU code within one step of
+# the card's, such flips at most DECODE_FLIP_SHARE of the codes (a
+# quantize that rounds or scales apart moves far more), and the logits
+# within DECODE_PINNED_RTOL of max |cpu logit|: only the f32 layers
+# (LayerNorm, GELU, attention, epilogues, the 768-term LM head) round
+# apart then, ~1e-6 of it
+DECODE_CPU_STEPS = 3
+DECODE_PINNED_RTOL = 1e-4
+DECODE_FLIP_SHARE = 1e-3
+# the slot loop's churn: the slots phase's trace, cut to 16 requests
+DECODE_SLOT_REQUESTS = 16
+
+
+def _decode_gpt(torch, seed):
+    """bench_decode's GPT in f32, GPT-2's initialization from ``seed``."""
+    from paddle_tpu_torch.text.models import GPTConfig, GPTModel
+    model = GPTModel(GPTConfig(**DECODE_CFG), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    return model.eval()
+
+
+def _decode_bench(torch, gen, rng, vocab):
+    """bench.py's _bench_decode_one timing (bench.py:926-960) on the port:
+    for each batch a warm-up generate() (kept for the checks), then the
+    prefill and the decode loop timed apart, each the best of 3 fenced
+    by synchronize().  Returns (record, {batch: (ids, tokens)})."""
+    P0, steps = DECODE["prompt"], DECODE["steps"]
+    res, runs = {}, {}
+
+    def best(fn):
+        b = out = None
+        for _ in range(DECODE["reps"]):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            b = dt if b is None else min(b, dt)
+        return b, out
+
+    for B in DECODE["batches"]:
+        ids = rng.randint(1, vocab, (B, P0)).astype(np.int64)
+        runs[B] = (ids, gen.generate(ids, max_new_tokens=steps)
+                   .cpu().numpy())
+        P = gen.prefill_bucket(P0)
+        C = gen.cache_bucket(P, steps)
+        packed, start = gen.pack_prompts(list(ids), P)
+        pre_s, (cache, logits0) = best(lambda: gen.prefill(packed, start,
+                                                           C))
+        dec_s, _ = best(lambda: gen.decode(cache, logits0, start, P,
+                                           steps))
+        res[f"batch{B}"] = {
+            "cache": C, "prefill_ms": round(pre_s * 1e3, 3),
+            "decode_ms": round(dec_s * 1e3, 3),
+            "decode_ms_per_tok": round(dec_s * 1e3 / steps, 4),
+            "prefill_fraction": round(pre_s / (pre_s + dec_s), 3),
+            "tok_per_s_decode": round(B * steps / dec_s, 1),
+            "tok_per_s_total": round(B * steps / (pre_s + dec_s), 1)}
+    return res, runs
+
+
+def _decode_rows(gen, prompts, want, where):
+    """A batch generate() of the ragged ``prompts`` (right-padded, with
+    their lengths), each row against ``want``, its prompt's batch-1
+    generate(), token for token.  Returns the batch's tokens."""
+    ids = np.zeros((len(prompts), max(p.size for p in prompts)), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :p.size] = p
+    toks = gen.generate(ids, lengths=[p.size for p in prompts],
+                        max_new_tokens=DECODE["steps"]).cpu().numpy()
+    for i, one in enumerate(want):
+        diff = np.nonzero(one != toks[i])[0]
+        check(diff.size == 0, f"decode_int8 {where}: batch row {i} differs "
+              f"from its batch-1 generate() from token {diff[:1]}")
+    return toks
+
+
+def _decode_int8_products(torch, model, gen, runs):
+    """Every ``int8_mm`` call of the frozen GPT's batch-1 prefill (bench's
+    batch-1 prompt) and of one batch-8 decode step (after the batch-8
+    prefill) on the card against the exact product on the CPU (f64, as
+    ``_int8_products``); and the float GEMMs of both, which must be the
+    LM head's alone.  Returns {"MxKxN": count}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import int8 as I8
+    P, steps = DECODE["prompt"], DECODE["steps"]
+    C = gen.cache_bucket(P, steps)
+    ids8, toks8 = runs[8]
+    p8, s8 = gen.pack_prompts(list(ids8), P)
+    cache8, _ = gen.prefill(p8, s8, C)
+    p1, s1 = gen.pack_prompts(list(runs[1][0]), P)
+    seen, floats = [], []
+    real_mm, real_linear = I8.int8_mm, F.linear
+
+    def recording(a, w):
+        out = real_mm(a, w)
+        seen.append((a, w, out))
+        return out
+
+    def linear(x, w, b=None):
+        floats.append(tuple(w.shape))
+        return real_linear(x, w, b)
+
+    I8.int8_mm, F.linear = recording, linear
+    try:
+        gen.prefill(p1, s1, C)
+        n_prefill = len(seen)
+        with torch.inference_mode():
+            model.forward_cached(torch.as_tensor(toks8[:, :1], device="cuda"),
+                                 cache8, P, torch.as_tensor(s8,
+                                                            device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        I8.int8_mm, F.linear = real_mm, real_linear
+    sites = len(DECODE_SITES) * DECODE_CFG["num_layers"]
+    check(n_prefill == sites and len(seen) == 2 * sites,
+          f"decode_int8: {n_prefill} and {len(seen) - n_prefill} int8 "
+          f"products in a prefill and a step, want {sites} each")
+    check(floats == [tuple(model._lm_head.shape)] * 2,
+          f"decode_int8: float GEMMs {floats}, want the LM head's alone")
+    shapes = {}
+    for a, w, out in seen:
+        want = (a.cpu().double() @ w.cpu().double().t()).long()
+        check(out.is_cuda and out.dtype == torch.int32
+              and torch.equal(out.cpu().long(), want),
+              f"decode_int8: the card's int8 product at {tuple(a.shape)} x "
+              f"{tuple(w.shape)} differs from the exact one")
+        key = f"{a.shape[0]}x{a.shape[1]}x{w.shape[0]}"
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def _decode_card_vs_cpu(torch, model, gen, runs):
+    """The frozen GPT on the card against the same frozen state on the
+    CPU (TF32 off): bench's batch-1 prompt's prefill, then
+    DECODE_CPU_STEPS steps fed the card's greedy tokens; max |card -
+    cpu| / max |cpu| of each call's logits, free (each device codes its
+    own activations: reported) and pinned (the CPU takes the card's
+    activation codes at every site, each within one step of its own:
+    held to DECODE_PINNED_RTOL).  Returns (free, pinned, flips: codes
+    the CPU would have coded a step apart, of all codes)."""
+    from paddle_tpu_torch.ops import int8 as I8
+    from paddle_tpu_torch.quantization import ImperativeQuantAware, freeze
+    from paddle_tpu_torch.quantization.freeze import quant_signature
+    from paddle_tpu_torch.text.models import GPTModel
+    cpu = GPTModel(model.config, device="cpu")
+    ImperativeQuantAware().quantize(cpu)        # PTQ's wrappers
+    freeze(cpu)
+    cpu.load_state_dict(model.state_dict())
+    check(quant_signature(cpu) == quant_signature(model),
+          "decode_int8: the CPU copy's frozen sites differ from the card's")
+    ids, toks = runs[1]
+    P = DECODE["prompt"]
+    C = gen.cache_bucket(P, DECODE["steps"])
+    packed, start = gen.pack_prompts(list(ids), P)
+    real = I8._quantize_act
+
+    def run(m, dev, quantize=real):
+        I8._quantize_act = quantize
+        try:
+            with torch.inference_mode():
+                st = torch.as_tensor(start, device=dev)
+                lg, cache = m.forward_cached(
+                    torch.as_tensor(packed, device=dev), m.init_cache(1, C),
+                    0, st)
+                seq = [lg.float().cpu()]
+                for t in range(DECODE_CPU_STEPS):
+                    lg, cache = m.forward_cached(
+                        torch.as_tensor(toks[:, t:t + 1], device=dev), cache,
+                        P + t, st)
+                    seq.append(lg.float().cpu())
+        finally:
+            I8._quantize_act = real
+        return seq
+
+    codes = []
+
+    def record(x, scale, qmax):
+        q, sx = real(x, scale, qmax)
+        codes.append(q.cpu())
+        return q, sx
+
+    flips = [0, 0]
+
+    def pinned(x, scale, qmax):
+        q, sx = real(x, scale, qmax)
+        want = codes[flips[1]] if flips[1] < len(codes) else None
+        check(want is not None and want.shape == q.shape,
+              f"decode_int8: CPU site call {flips[1]} has no card codes "
+              "of its shape")
+        d = (q.short() - want.short()).abs()
+        check(int(d.max()) <= 1, f"decode_int8: site call {flips[1]}: the "
+              f"CPU codes an input {int(d.max())} steps off the card")
+        flips[0] += int((d > 0).sum())
+        flips[1] += 1
+        return want, sx
+
+    card = run(model, "cuda", record)
+    free = run(cpu, "cpu")
+    n_codes = sum(c.numel() for c in codes)
+    pin = run(cpu, "cpu", pinned)
+    check(flips[1] == len(codes), f"decode_int8: {flips[1]} CPU site calls "
+          f"for {len(codes)} on the card")
+
+    def errs(ref):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(card, ref)]
+
+    free, pin = errs(free), errs(pin)
+    share = flips[0] / n_codes
+    check(all(np.isfinite(pin)) and max(pin) <= DECODE_PINNED_RTOL
+          and share <= DECODE_FLIP_SHARE,
+          f"decode_int8: the card against the CPU on one frozen state, the "
+          f"CPU taking the card's codes: {pin} of max |ref| (limit "
+          f"{DECODE_PINNED_RTOL}), codes a step apart {flips[0]} of "
+          f"{n_codes} (limit {DECODE_FLIP_SHARE})")
+    return free, pin, share
+
+
+def _decode_int8_slots(torch, model, seed):
+    """The frozen GPT through the slot loop (the slots phase's server: 8
+    slots, chunk 64, a 768-column ring), f32 then int8 KV, on the churn
+    trace's first DECODE_SLOT_REQUESTS requests: rows held to the slot-row
+    rule (``_check_rows``), every step a replay with no wrapper launch,
+    12 decode nodes in the graph, the captured step equal to the eager
+    one.  Returns {kv: record}."""
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.text.generation import Generator
+    cfg = model.config
+    reqs = _churn(seed + 7, cfg.vocab_size, n=DECODE_SLOT_REQUESTS)
+    oracle = Generator(model, seq_buckets=(128, 256, 512, SLOT_CACHE),
+                       max_len=SLOT_CACHE)
+    out = {}
+    for kv in ("bf16", "int8"):
+        where = f"decode_int8 slots kv={kv}"
+        srv = _slot_server(torch, model, kv)
+        try:
+            rt = srv._models["gpt2"]
+            step = rt._loop._step
+            check(step.captured, f"{where}: the loop's step is not the "
+                  "captured graph")
+            fd.launch_counts(reset=True)
+            r0 = step.replays
+            served, run = _serve_churn(torch, srv, reqs)
+            counts = fd.launch_counts()
+            sl = run["stats"]["slot_loop"]
+            check(step.replays - r0 == sl["steps"] > 0
+                  and sum(counts.values()) == 0,
+                  f"{where}: {step.replays - r0} replays for {sl['steps']} "
+                  f"steps, wrapper launches {counts}")
+            nodes, kernels = _graph_nodes(step._graph,
+                                          "decode_cluster_kernel")
+            check(nodes == {SLOTS * cfg.num_heads: cfg.num_layers},
+                  f"{where}: graph decode nodes {nodes} of {len(kernels)} "
+                  "kernel nodes")
+        finally:
+            srv.stop()
+        equal, ties = _check_rows(torch, model, oracle, reqs, served, where,
+                                  SLOT_TIE_SHARE["churn"])
+        _step_compare(torch, rt.gen, kv)
+        out[kv] = {"steps_replayed": sl["steps"], "chunks": sl["chunks"],
+                   "decode_kernels_per_replay": sum(nodes.values()),
+                   "graph_kernel_nodes": len(kernels),
+                   "tok_per_s": run["tok_per_s"],
+                   "ttft_p50_ms": sl["ttft_p50_ms"],
+                   "rows_equal_batch1_generate": f"{equal}/{len(reqs)}",
+                   "tokens_checked": sum(mn for _, mn in reqs),
+                   **_tie_summary(ties), "captured_equals_eager": True}
+        log("decode_int8", slots=kv, **out[kv])
+        del rt, srv, step
+    return out
+
+
+def _decode_f32_kernels(torch, seed):
+    """B3's f32 instance and B4 with an f32 query, at the served shape
+    (B = 8, N = 12, cache 256, H = 64): against their plain versions over
+    the kernels phase's four kinds of window (ATOL f32), then timed by
+    graph replay over LAYERS_CACHES caches, full window, beside the plain
+    versions, SDPA in f32 under the same window as an additive mask (B3)
+    and the bound."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.nn.layer.transformer import quantize_kv_rows
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    B, N, S, H = 8, 12, 256, 64
+    q = torch.randn(B, N, 1, H, generator=g, device="cuda")
+    caches = [tuple(torch.randn(B, N, S, H, generator=g, device="cuda")
+                    for _ in range(2)) for _ in range(LAYERS_CACHES)]
+    quant = [quantize_kv_rows(k) + quantize_kv_rows(v) for k, v in caches]
+    k, v = caches[0]
+    k8, ks, v8, vs = quant[0]
+    err = {"flash_decode": 0.0, "flash_decode_quant": 0.0}
+    for kind in ("full", "ragged", "edge", "anywhere"):
+        lo, hi = _windows(torch, kind, B, S, g)
+        for name, got, want in (
+                ("flash_decode", fd.flash_decode(q, k, v, lo, hi),
+                 fd.flash_decode_plain(q, k, v, lo, hi)),
+                ("flash_decode_quant",
+                 fd.flash_decode_quant(q, k8, v8, ks, vs, lo, hi),
+                 fd.flash_decode_quant_plain(q, k8, v8, ks, vs, lo, hi))):
+            e = (got - want).abs().max().item()
+            check(got.dtype == torch.float32 and got.shape == q.shape
+                  and bool(torch.isfinite(got).all())
+                  and e <= ATOL["float32"],
+                  f"decode_int8: {name} f32 q {kind} windows: max abs err "
+                  f"{e} > {ATOL['float32']}")
+            err[name] = max(err[name], e)
+    lo, hi = _windows(torch, "full", B, S, g)
+    mask = torch.zeros(B, 1, 1, S, device="cuda").masked_fill_(
+        (torch.arange(S, device="cuda") >= hi[:, None]).view(B, 1, 1, S),
+        -1e30)
+    n = len(caches)
+    t = {"flash_decode": _graph_ms(torch, lambda i: fd.flash_decode(
+            q, *caches[i % n], lo, hi), 2 * n),
+         "flash_decode_plain": _graph_ms(torch, lambda i:
+            fd.flash_decode_plain(q, *caches[i % n], lo, hi), 2 * n),
+         "flash_decode_library": _graph_ms(torch, lambda i:
+            F.scaled_dot_product_attention(q, *caches[i % n],
+                                           attn_mask=mask), 2 * n),
+         "flash_decode_quant": _graph_ms(torch, lambda i:
+            fd.flash_decode_quant(q, quant[i % n][0], quant[i % n][2],
+                                  quant[i % n][1], quant[i % n][3], lo, hi),
+            2 * n),
+         "flash_decode_quant_plain": _graph_ms(torch, lambda i:
+            fd.flash_decode_quant_plain(q, quant[i % n][0], quant[i % n][2],
+                                        quant[i % n][1], quant[i % n][3],
+                                        lo, hi), 2 * n)}
+    b3, b3_by, b3_bytes = _bound(B, N, H, lo, hi, "float32", 4, False)
+    b4, b4_by, b4_bytes = _bound(B, N, H, lo, hi, "int8", 4, True)
+    t.update(flash_decode_bound=b3, flash_decode_bound_by=b3_by,
+             flash_decode_bytes=b3_bytes, flash_decode_quant_bound=b4,
+             flash_decode_quant_bound_by=b4_by,
+             flash_decode_quant_bytes=b4_bytes,
+             flash_decode_err=err["flash_decode"],
+             flash_decode_quant_err=err["flash_decode_quant"])
+    log("decode_int8", timing=f"B={B} N={N} S={S} H={H} f32 q (f32 K/V; "
+        f"int8 K/V for B4), full window, {n} caches rotated", ms=t)
+    return t
+
+
+def phase_decode_int8(torch, seed):
+    """bench_decode on the port at its chip configuration: the bf16
+    variant timed, then the int8 one (PTQ, freeze) through generate(),
+    the decode server and the slot loop, with checks (a)-(f): batch rows
+    = batch-1 generate() (f32 and int8 caches), every int8 product
+    exact, the card against the CPU, served rows = batch-1 generate(),
+    the slot loop's rows, replays and captured step, and B3 f32 / B4
+    f32-query against their plain versions."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.ops.kernels import flash_decode as fd
+    from paddle_tpu_torch.quantization import PostTrainingQuantization, \
+        freeze
+    from paddle_tpu_torch.quantization.freeze import FrozenQuantizedLinear
+    from paddle_tpu_torch.text.generation import Generator
+    V, layers = DECODE_CFG["vocab_size"], DECODE_CFG["num_layers"]
+    steps, batches = DECODE["steps"], DECODE["batches"]
+    grid = dict(seq_buckets=DECODE["seq_buckets"], max_len=DECODE["max_len"])
+    per_gen = layers * steps            # one-query launches a generate()
+    bench_gens = (1 + DECODE["reps"]) * len(batches)
+    seconds, launches = {}, {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    def counts_are(name, live, want):
+        got = fd.launch_counts()
+        check(got == {k: want if k == live else 0 for k in got},
+              f"decode_int8 {name}: launches {got}, want {live}={want}")
+        launches[name] = want
+
+    f32 = _decode_gpt(torch, seed)
+    snap = flags.flags_snapshot()
+    try:
+        flags.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
+        # bench's bf16 variant: amp.decorate of the same GPT (a second
+        # one from the seed); the tied head follows the embedding
+        bf16 = amp.decorate(_decode_gpt(torch, seed), level="O2",
+                            dtype="bfloat16")
+        check(bf16._lm_head.dtype == torch.bfloat16
+              and bf16._lm_head.data_ptr() == bf16.wte.weight.data_ptr(),
+              "decode_int8: amp.decorate cut the embedding off the head")
+        fd.launch_counts(reset=True)
+        bench = {"bf16": _decode_bench(torch, Generator(bf16, **grid),
+                                       np.random.RandomState(0), V)[0]}
+        counts_are("bf16_bench_generate", "flash_decode",
+                   per_gen * bench_gens)
+        del bf16
+        lap("bf16_bench")
+        # bench's int8 variant: one RandomState(0) draws the calibration
+        # prompt, then each batch's prompts
+        rng = np.random.RandomState(0)
+        cal = torch.as_tensor(rng.randint(1, V, (batches[0],
+                                                 DECODE["prompt"])),
+                              device="cuda")
+        PostTrainingQuantization(model=f32, data_loader=(
+            (cal,) for _ in range(4)), batch_nums=4).quantize()
+        model = freeze(f32)
+        sites = [n for n, m in model.named_modules()
+                 if isinstance(m, FrozenQuantizedLinear) and not m._dynamic]
+        check(sites == [f"encoder.layers.{i}.{s}" for i in range(layers)
+                        for s in DECODE_SITES]
+              and isinstance(model.wte, torch.nn.Embedding),
+              f"decode_int8: frozen static sites {sites}")
+        lap("ptq_freeze")
+        gen = Generator(model, **grid)
+        # the main path's run: counts read from 0 just before it
+        fd.launch_counts(reset=True)
+        bench["int8"], runs = _decode_bench(torch, gen, rng, V)
+        counts_are("int8_bench_generate", "flash_decode",
+                   per_gen * bench_gens)
+        lap("int8_bench")
+        # where a frozen decode step's time goes: one-step decode() calls
+        # of the batch-8 loop (f32 cache)
+        P = gen.prefill_bucket(DECODE["prompt"])
+        packed, start = gen.pack_prompts(list(runs[batches[-1]][0]), P)
+        cache, logits0 = gen.prefill(packed, start,
+                                     gen.cache_bucket(P, steps))
+        profile = {"batch": batches[-1], **_step_profile(
+            torch, lambda i: gen.decode(cache, logits0, start, P, 1),
+            calls=8, ms_of={"int8_gemm_ms": r"i8|s8|imma|Imma"})}
+        profile.pop("decode_by_launch")
+        del cache, logits0
+        log("decode_int8", profile=profile)
+        lap("profile")
+        # (d) the decode server on the serving phase's traffic; its
+        # batch-1 generate() rows (f32 cache) are also (a)'s
+        traffic, one = _traffic(seed, V), []
+        served = _serve_once(torch, model, traffic, "bf16", GRID,
+                             tag="decode_int8", oracle_rows=one)
+        launches["server"] = served["launches"]["flash_decode"]
+        lap("server")
+        # (a) a batch-8 generate() of the traffic's first 8 prompts, each
+        # row against its batch-1 generate(): (d)'s for the f32 cache,
+        # new ones for the int8 cache
+        eight, rows = traffic[:batches[-1]], Generator(
+            model, seq_buckets=GRID["seq_buckets"], max_len=GRID["max_len"])
+        fd.launch_counts(reset=True)
+        toks8 = _decode_rows(rows, eight, one[:len(eight)], "f32 cache")
+        counts_are("rows_f32_cache", "flash_decode", per_gen)
+        fd.launch_counts(reset=True)
+        flags.set_flags({"FLAGS_kv_cache_dtype": "int8"})
+        one = [rows.generate(p[None, :], max_new_tokens=steps).cpu()
+               .numpy()[0] for p in eight]
+        toks8q = _decode_rows(rows, eight, one, "int8 cache")
+        counts_are("rows_int8_cache", "flash_decode_quant",
+                   per_gen * (1 + len(eight)))
+        flags.set_flags({"FLAGS_kv_cache_dtype": "bf16"})
+        lap("rows")
+        # (b) every int8 product exact; (c) the card against the CPU
+        products = _decode_int8_products(torch, model, gen, runs)
+        lap("products")
+        card_cpu = _decode_card_vs_cpu(torch, model, gen, runs)
+        lap("card_vs_cpu")
+        # (e) the slot loop
+        slots = _decode_int8_slots(torch, model, seed)
+        lap("slots")
+    finally:
+        flags.flags_restore(snap)
+    # (f) B3 f32 and B4 f32-query at the served shape
+    kern = _decode_f32_kernels(torch, seed)
+    lap("kernels")
+    b = f"batch{batches[-1]}"
+    speedup = round(bench["int8"][b]["tok_per_s_decode"]
+                    / bench["bf16"][b]["tok_per_s_decode"], 3)
+    out = {"bench": bench, "int8_decode_speedup_maxbatch": speedup,
+           "launches": launches, "products": products,
+           "card_vs_cpu_free_rel_err": card_cpu[0],
+           "card_vs_cpu_pinned_rel_err": card_cpu[1],
+           "card_vs_cpu_pinned_rtol": DECODE_PINNED_RTOL,
+           "cpu_codes_a_step_apart_share": card_cpu[2],
+           "int8_cache_tokens_equal_f32_cache": round(
+               float((toks8q == toks8).mean()), 4),
+           "server": {k: served[k] for k in (
+               "decode_tok_per_s", "ttft_p50_ms", "ttft_p99_ms", "batches",
+               "rows_equal_batch1_generate")},
+           "slots": slots, "kernels": kern, "profile": profile,
+           "seconds": seconds}
+    log("decode_int8", **{k: v for k, v in out.items()
+                          if k not in ("slots", "kernels", "profile")})
+    return out
 
 
 # -- phase 8: flash attention kernels (B1, B2) -------------------------------
@@ -5553,6 +6102,9 @@ def main(argv=None):
     del model
     _at("e2e")
     phase_e2e(torch, args.seed)
+    _at("decode_int8")
+    dec = phase_decode_int8(torch, args.seed)
+    torch.cuda.empty_cache()
     _at("train")
     trained, step, batch = phase_train(torch, args.seed)
     _at("train_profile")
@@ -5729,8 +6281,33 @@ def main(argv=None):
          "bound_ms": timing["flash_decode_quant_block_bound"],
          "bound_by": timing["flash_decode_quant_block_bound_by"],
          "library_ms": None},
-    ] + fa_kernels + _fused_kernel_records(fused_worst, fused_t, resnet,
-                                           paths)
+    ]
+    # B3's f32 instance and B4 with an f32 query on bench_decode's int8
+    # path (decode_int8): launches of its runs by path, the graph's nodes
+    # a slot replay, timed at the served shape in f32
+    dk, dl = dec["kernels"], dec["launches"]
+    for name, line, runs, library in (
+            ("flash_decode", 68, ("int8_bench_generate", "rows_f32_cache",
+                                  "server"), dk["flash_decode_library"]),
+            # no single PyTorch call attends over int8 rows with scales
+            ("flash_decode_quant", 159, ("rows_int8_cache",), None)):
+        kv = "int8" if name == "flash_decode_quant" else "bf16"
+        kernels.append({
+            "name": (f"{name}_served_f32q" if kv == "int8"
+                     else f"{name}_served_f32"),
+            "route": "cuda", "source": src,
+            "replaces": f"paddle_tpu/ops/pallas/flash_decode.py:{line}",
+            "launches": dl[runs[0]],
+            "launches_by_path": {
+                **{r: dl[r] for r in runs},
+                "slot_step_per_replay": dec["slots"][kv][
+                    "decode_kernels_per_replay"],
+                "slot_replays": dec["slots"][kv]["steps_replayed"]},
+            "max_abs_err": dk[f"{name}_err"], "ms": dk[name],
+            "plain_ms": dk[f"{name}_plain"], "bound_ms": dk[f"{name}_bound"],
+            "bound_by": dk[f"{name}_bound_by"], "library_ms": library})
+    kernels += fa_kernels + _fused_kernel_records(fused_worst, fused_t,
+                                                  resnet, paths)
     _at("done")
     log("done", seconds=round(time.perf_counter() - t0, 1),
         phase_seconds=_PHASE_S)

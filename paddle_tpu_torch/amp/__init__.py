@@ -109,9 +109,12 @@ def decorate(models=None, optimizers=None, level="O1", dtype="bfloat16",
 
     ``level="O2"`` casts every floating parameter of ``models`` (one
     module or a list) to bf16 (``dtype`` "bfloat16"/"bf16") or f16, in
-    place, LayerNorm's included, as the JAX package does; buffers keep
-    their dtype.  ``level="O1"`` returns the models unchanged.  The JAX
-    package's O2 optimizer keeps f32 master weights; the port's
+    place, LayerNorm's included, as the JAX package does.  Buffers keep
+    their dtype, except where a module ties a parameter to one: each
+    submodule with a ``_tie_weights`` method re-ties them after the cast
+    (GPT's padded LM head follows its embedding into bf16).
+    ``level="O1"`` returns the models unchanged.  The JAX package's O2
+    optimizer keeps f32 master weights; the port's
     ``Optimizer`` has none yet, so passing ``optimizers`` raises
     (ROADMAP A5)."""
     if optimizers is not None:
@@ -127,4 +130,9 @@ def decorate(models=None, optimizers=None, level="O1", dtype="bfloat16",
                 for p in m.parameters():
                     if p.is_floating_point():
                         p.data = p.data.to(dt)
+                # a parameter that shares storage with a buffer (GPT's
+                # padded tied head) has just been given its own
+                for sub in m.modules():
+                    if hasattr(sub, "_tie_weights"):
+                        sub._tie_weights()
     return models

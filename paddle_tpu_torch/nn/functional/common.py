@@ -131,3 +131,48 @@ def batch_invariant_linear(x, weight, bias=None, rows=ROW_CHUNK):
     xp, n = pad_rows(x, rows)
     return rows_linear(xp, weight, bias, rows)[:n].reshape(
         *x.shape[:-1], weight.shape[0])
+
+
+def cached_linears(x, *layers):
+    """``layer(x)`` for each of ``layers``, projections of the serving
+    path, each output row a function of its own input row.
+
+    A float ``Linear`` multiplies in fixed row chunks
+    (:func:`batch_invariant_linear`), and the ``Linear``s among
+    ``layers`` share one :func:`pad_rows` copy of ``x``.  Any other
+    site, a frozen int8 linear (``quantization.freeze``) among them,
+    runs its own forward on the real rows of ``x``, as the JAX package
+    calls the layer: its integer sum is exact at any row count and its
+    quantize and epilogue are elementwise, so it needs no chunks.  Only
+    a static site (a calibrated input scale, as PTQ's) keeps a served
+    row equal to its batch-1 ``generate()``; a dynamic one quantizes at
+    the abs-max of all of ``x``'s rows, as JAX's does."""
+    floats = [isinstance(m, torch.nn.Linear) for m in layers]
+    if not any(floats):
+        return tuple(m(x) for m in layers)
+    xp, n = pad_rows(x)
+    return tuple(
+        rows_linear(xp, m.weight, m.bias)[:n].reshape(
+            *x.shape[:-1], m.weight.shape[0]) if f else m(x)
+        for m, f in zip(layers, floats))
+
+
+def cached_linear(x, layer):
+    """:func:`cached_linears` of one layer."""
+    if isinstance(layer, torch.nn.Linear):
+        return batch_invariant_linear(x, layer.weight, layer.bias)
+    return layer(x)
+
+
+def cached_ffn(x, linear1, mid, linear2):
+    """``linear2(mid(linear1(x)))`` on the serving path, row by row as
+    :func:`cached_linears`.  Two float ``Linear``s keep the rows padded
+    from ``linear1``'s input to ``linear2``'s output: one padding copy
+    for both GEMMs."""
+    if not (isinstance(linear1, torch.nn.Linear)
+            and isinstance(linear2, torch.nn.Linear)):
+        return cached_linear(mid(cached_linear(x, linear1)), linear2)
+    hp, n = pad_rows(x)
+    h = rows_linear(hp, linear1.weight, linear1.bias)
+    h = rows_linear(mid(h), linear2.weight, linear2.bias)
+    return h[:n].reshape(*x.shape[:-1], linear2.weight.shape[0])

@@ -10,11 +10,13 @@ Parameter names match the JAX package's dotted paths one to one
 so the weight bridge maps name to name.
 
 The cached (serving) forward multiplies in fixed row chunks
-(``pad_rows``, ``rows_linear``, ``batch_invariant_linear`` in
+(``cached_linears``, ``cached_linear`` and ``cached_ffn`` in
 ``nn/functional/common.py``): a row's projections then do not depend on
 the rows batched with it, so a served row equals its batch-1
 ``generate()`` bit for bit, as the JAX package's rows are across pack
-compositions.  The training forward calls the projections as modules.
+compositions.  A frozen int8 site computes its own exact product on the
+real rows (the same helpers).  The training forward calls the
+projections as modules.
 
 Every projection and LayerNorm is the port's Paddle-signature ``Linear``
 (Xavier-uniform weight, zero bias) and ``LayerNorm``, so one init rule
@@ -34,8 +36,8 @@ from ...framework.enforce import UnimplementedError
 from ...framework.flags import flag
 from ...framework.place import DeviceLike, module_device, resolve_device
 from ..functional.attention import attention_bnsh, cached_attention
-from ..functional.common import (batch_invariant_linear, dropout, pad_rows,
-                                 rows_linear)
+from ..functional.common import (cached_ffn, cached_linear, cached_linears,
+                                 dropout)
 from .common import Dropout, Linear, no_param_attrs
 from .norm import LayerNorm
 
@@ -184,12 +186,9 @@ class MultiHeadAttention(nn.Module):
         """Project the new tokens, write their K/V into the ring at
         ``cache_position`` and attend the new queries over the whole cache
         under the caller's validity mask.  Returns (out, cache)."""
-        # the three projections share one row-padded copy of the input
-        xp, n = pad_rows(query)
         q, k_new, v_new = (
-            self._split_heads(rows_linear(xp, p.weight, p.bias)[:n]
-                              .reshape(*query.shape[:-1], -1))
-            for p in (self.q_proj, self.k_proj, self.v_proj))
+            self._split_heads(t) for t in cached_linears(
+                query, self.q_proj, self.k_proj, self.v_proj))
         if isinstance(cache, self.QuantRingCache):
             kq, ks = quantize_kv_rows(k_new)
             vq, vs = quantize_kv_rows(v_new)
@@ -210,9 +209,7 @@ class MultiHeadAttention(nn.Module):
                                    window=decode_window)
         if self.dropout:
             out = dropout(out, self.dropout, training=self.training)
-        return batch_invariant_linear(self._merge_heads(out),
-                                      self.out_proj.weight,
-                                      self.out_proj.bias), cache
+        return cached_linear(self._merge_heads(out), self.out_proj), cache
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, cache_position=None, decode_window=None):
@@ -289,13 +286,9 @@ class TransformerEncoderLayer(nn.Module):
             src = self.linear2(self.dropout(self.activation(
                 self.linear1(src))))
         else:
-            # the FFN stays row-padded from linear1's input to linear2's
-            # output: one padding copy for both GEMMs
-            hp, n = pad_rows(src)
-            h = rows_linear(hp, self.linear1.weight, self.linear1.bias)
-            h = rows_linear(self.dropout(self.activation(h)),
-                            self.linear2.weight, self.linear2.bias)
-            src = h[:n].reshape(src.shape)
+            src = cached_ffn(src, self.linear1,
+                             lambda h: self.dropout(self.activation(h)),
+                             self.linear2)
         src = residual + self.dropout2(src)
         if not self.normalize_before:
             src = self.norm2(src)

@@ -79,12 +79,25 @@ class GPTModel(nn.Module):
             layer, cfg.num_layers,
             norm=nn.LayerNorm(cfg.hidden_size, eps=1e-5, **fk))
 
+    @torch.no_grad()
+    def _tie_weights(self):
+        """Point the embedding back at the first rows of a zero-padded
+        head block of its own dtype and device.  ``amp.decorate`` calls
+        this after it casts the parameters, which gives the embedding
+        storage of its own; the Parameter object stays the same."""
+        w = self.wte.weight
+        head = w.new_zeros(self._lm_head.shape)
+        head[:self.config.vocab_size] = w
+        w.data = head[:self.config.vocab_size]
+        self._lm_head = head
+
     def _logits(self, h, rows_invariant=False):
         if self._lm_head.data_ptr() != self.wte.weight.data_ptr():
             raise RuntimeError(
                 "the LM head no longer shares the embedding's storage "
                 "(the model was copied with .to()/.cuda()); build it with "
-                "the device and dtype it should run in")
+                "the device and dtype it should run in, or cast it with "
+                "amp.decorate")
         head = batch_invariant_linear if rows_invariant else F.linear
         return head(h, self._lm_head)[..., :self.config.vocab_size]
 

@@ -99,6 +99,8 @@ def test_package_imports_with_jax_unimportable():
             "from paddle_tpu_torch.quantization import (freeze, "
             "PostTrainingQuantization, save_int8_model)\n"
             "from paddle_tpu_torch.ops.int8 import conv2d_int8, linear_int8\n"
+            "from paddle_tpu_torch.nn.functional.common import (cached_ffn, "
+            "cached_linear, cached_linears)\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -258,7 +260,8 @@ def test_int8_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
     """PTQ runs on the model's device, and a default-built model needs the
     card; export_for_serving(int8=True) exports on the model's device;
     the int8 Predictor, like the float one, needs CUDA unless its Config
-    asks for the CPU, with or without FLAGS_use_int8_inference."""
+    asks for the CPU, with or without FLAGS_use_int8_inference; so does
+    the Generator of a frozen GPT."""
     from paddle_tpu_torch import inference
     from paddle_tpu_torch.framework.flags import (flags_restore,
                                                   flags_snapshot, set_flags)
@@ -293,6 +296,18 @@ def test_int8_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
         flags_restore(snap)
     with pytest.raises(PreconditionNotMetError):
         serving.Server().register("lenet", prefix)
+    # a frozen GPT decodes on the CPU only when the Generator asks for it
+    from paddle_tpu_torch.quantization import freeze
+    gpt = GPTModel(GPTConfig.tiny(), device="cpu")
+    ids = np.ones((1, 3), np.int64)
+    PostTrainingQuantization(model=gpt, data_loader=((ids,) for _ in
+                                                     range(4))).quantize()
+    freeze(gpt)
+    with pytest.raises(PreconditionNotMetError):
+        Generator(gpt)
+    out = Generator(gpt, device="cpu", seq_buckets=(8,), max_len=16) \
+        .generate(ids, max_new_tokens=2)
+    assert out.device.type == "cpu" and out.shape == (1, 2)
 
 
 def test_attention_ab_needs_cuda_and_its_helpers_exist(monkeypatch):

@@ -51,6 +51,13 @@ CASES = {
     # odd S: the int8 scales of a window start and end off a 4-row (16-
     # byte) boundary of the scale tensor in every (batch, head) row
     "s201_off4": (2, 3, 201, 64, [5, 1], [199, 198]),
+    # bench_decode's served shape (B = 8, N = 12, cache 256, H = 64),
+    # which its int8 variant runs in f32: generate()'s windows [0, pos +
+    # 1) at decode positions 128 to 255, and ragged starts
+    "served": (8, 12, 256, 64, [0] * 8,
+               [129, 150, 177, 200, 223, 240, 255, 256]),
+    "served_ragged": (8, 12, 256, 64, [0, 3, 17, 40, 64, 77, 90, 99],
+                      [256, 129, 200, 255, 131, 190, 240, 222]),
 }
 
 
@@ -105,7 +112,7 @@ def test_kernels_match_plain_versions(cuda, name, dtype, atol):
             fd.flash_decode_quant.launches - nq0) == (1, 1)
 
 
-@pytest.mark.parametrize("name", ["full", "s1024", "s201_off4"])
+@pytest.mark.parametrize("name", ["full", "s1024", "s201_off4", "served"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_repeat_bit_for_bit(cuda, name, dtype):
     """Two launches on one input give the same bits: one writer per
@@ -672,9 +679,9 @@ def _slot_model(dev):
     return model.eval()
 
 
-def _slot_steps(dev, kv, C, S=8):
+def _slot_steps(dev, kv, C, S=8, model=None):
     """A captured step and the same step run eagerly, from one random
-    state (planes and logits)."""
+    state (planes and logits), of ``model`` (default ``_slot_model``)."""
     from paddle_tpu_torch.framework.flags import flags_restore, \
         flags_snapshot, set_flags
     from paddle_tpu_torch.text.generation import Generator
@@ -682,8 +689,8 @@ def _slot_steps(dev, kv, C, S=8):
     snap = flags_snapshot()
     try:
         set_flags({"FLAGS_kv_cache_dtype": kv})
-        gen = Generator(_slot_model(dev), device=dev, seq_buckets=(C,),
-                        max_len=C)
+        gen = Generator(_slot_model(dev) if model is None else model,
+                        device=dev, seq_buckets=(C,), max_len=C)
         cap = gen.step_exec(S, C)
         eager = SlotStep(gen, S, C, -1)
     finally:
@@ -768,6 +775,63 @@ def test_captured_slot_step_equals_eager_step(cuda, kv, C):
     # the int8 cache runs the kernel's int8 instantiation (B4)
     assert traced and all(("signed char" in k) == (kv == "int8")
                           for k in traced), traced
+
+
+def _frozen_slot_model(dev):
+    """``_slot_model``'s 12 layers in f32, PTQ-calibrated over one seeded
+    64-token prompt and frozen, as bench_decode's int8 variant: 72 int8
+    sites, f32 float layers and cache."""
+    from paddle_tpu_torch.quantization import (PostTrainingQuantization,
+                                               freeze)
+    from paddle_tpu_torch.text.models import GPTConfig, GPTModel
+    model = GPTModel(GPTConfig.tiny(vocab_size=512, hidden_size=128,
+                                    layers=12, heads=2, seq=1024),
+                     device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    cal = torch.from_numpy(np.random.RandomState(0).randint(1, 512, (1, 64)))
+    PostTrainingQuantization(model=model.eval(), data_loader=(
+        (cal.to(dev),) for _ in range(4)), batch_nums=4).quantize()
+    return freeze(model)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_captured_slot_step_with_frozen_sites_equals_eager_step(cuda, kv):
+    """The slot step of a frozen-int8 GPT (f32 layers; B3's f32 instance,
+    or B4 with an f32 query under the int8 cache): the graph captures
+    each site's quantize, padded _int_mm and epilogue, and five replays
+    equal the eager step bit for bit; the eager step runs one int8
+    product a site (72), the replay none through Python; the graph
+    holds 12 decode kernel nodes."""
+    from paddle_tpu_torch.ops import int8 as I8
+    _, cap, eager = _slot_steps(cuda, kv, 256,
+                                model=_frozen_slot_model(cuda))
+    rng = np.random.RandomState(7)
+    real, calls = I8.int8_mm, []
+
+    def counting(a, w):
+        calls.append(a.shape[0])
+        return real(a, w)
+
+    fin_c = fin_e = np.zeros(8, bool)
+    I8.int8_mm = counting
+    try:
+        for i in range(5):
+            pos = 200 + i
+            start = rng.randint(0, pos + 1, 8).astype(np.int32)
+            active = rng.rand(8) < 0.7
+            fin_c, tok_c = cap(start, fin_c, active, pos)
+            assert calls == []
+            fin_e, tok_e = eager(start, fin_e, active, pos)
+            assert calls == [8] * 72
+            del calls[:]
+            np.testing.assert_array_equal(tok_c, tok_e)
+            np.testing.assert_array_equal(fin_c, fin_e)
+            _assert_same_state(cap, eager)
+    finally:
+        I8.int8_mm = real
+    assert cap.logits.dtype == torch.float32
+    assert kernel_node_grids(cap._graph, "decode_cluster_kernel") == \
+        {8 * 2: 12}
 
 
 def test_captured_slot_step_reads_activation_logits(cuda):

@@ -281,6 +281,20 @@ without printing a result:
               warm-up, the idle share of 20 traced steps; and the same
               program under Adam(3e-3) on one repeated batch: the loss
               after 30 steps under half the first.
+ 15. static_infer  static_lenet's trained program as a static inference
+              model, which launches no hand-written kernel:
+              save_inference_model of the test clone, the Predictor
+              (its own scope, CUDA) against Executor.run of the test
+              clone at batches 1, 16 and 128, bit for bit; static.save of
+              the train program, deserialize_program + static.load into
+              a fresh scope, five steps against the running program's,
+              bit for bit; the executor-backed Server (buckets 1-16, 2
+              workers) under bench_serving's traffic for 8 s: QPS,
+              p50/p99 against LeNet's 50 ms SLO, no steady-state
+              capture, every served row equal to the Predictor's on the
+              same padded bucket, the bucket-16 graph's kernel nodes and
+              device ms; bench.py's batch-1 latency and batch-2048 img/s
+              (best of 20); the phase's laps.
 
 The last lines are the card as nvidia-smi reports it, the kernels'
 JSON record, and ``{"ok": true, "device": {...}}``.
@@ -5842,7 +5856,8 @@ LENET_FIT = dict(steps=30, lr=3e-3)
 def _lenet_program(paddle, static, optimizer):
     """bench_lenet_static's program, paddle read as paddle_tpu_torch;
     ``optimizer(paddle)`` minimizes the loss.  Returns (main, startup,
-    loss)."""
+    loss, test, logits): ``test`` is the test clone taken before
+    ``minimize``, as a Paddle user takes it."""
     main, startup = static.Program(), static.Program()
     paddle.enable_static()
     try:
@@ -5858,10 +5873,11 @@ def _lenet_program(paddle, static, optimizer):
             h = static.nn.fc(h, 84, activation="relu")
             logits = static.nn.fc(h, 10)
             loss = paddle.nn.functional.cross_entropy(logits, label)
+            test = main.clone(for_test=True)
             optimizer(paddle).minimize(loss)
     finally:
         paddle.disable_static()
-    return main, startup, loss
+    return main, startup, loss, test, logits
 
 
 def _lenet_stacks(seed, steps, batch):
@@ -5945,7 +5961,7 @@ def _lenet_against_cpu(torch, static, main, loss, init, names, seed):
 def _lenet_fit(torch, paddle, static, seed):
     """The program under Adam(3e-3) on one repeated batch: the loss after
     ``LENET_FIT['steps']`` steps under half the first, all finite."""
-    main, startup, loss = _lenet_program(
+    main, startup, loss, _, _ = _lenet_program(
         paddle, static, lambda p: p.optimizer.Adam(
             learning_rate=LENET_FIT["lr"]))
     exe = static.Executor()
@@ -5966,13 +5982,14 @@ def phase_static_lenet(torch, seed, card):
     """bench.py's LeNet through the static Program and Executor on the
     card: the captured-against-eager and card-against-CPU checks, then
     bench's epochs (warm-up + 2 timed), the in-graph rate, the kernel
-    nodes a step, the idle share, and the fit check."""
+    nodes a step, the idle share, and the fit check.  Returns the record
+    and (main, test clone, logits, loss, the trained scope)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import static
     from paddle_tpu_torch.profiler.cuda_graph import graph_kernel_nodes
     t_phase = time.perf_counter()
     B, n = LENET["batch"], LENET["steps"]
-    main, startup, loss = _lenet_program(
+    main, startup, loss, test, logits = _lenet_program(
         paddle, static, lambda p: p.optimizer.SGD(learning_rate=LENET["lr"]))
     ops = [op.type for op in main.global_block().ops]
     check(ops == LENET_OPS, f"static_lenet: recorded ops {ops}")
@@ -6047,7 +6064,240 @@ def phase_static_lenet(torch, seed, card):
     out["fit"] = _lenet_fit(torch, paddle, static, seed)
     log("static_lenet", check="fit", **out["fit"])
     log("static_lenet", total_s=round(time.perf_counter() - t_phase, 1))
+    return out, (main, test, logits, loss, sc)
+
+
+# phase 15: static_lenet's trained program as a static inference model.
+# The Predictor against Executor.run of the test clone at these batches,
+# three runs each (eager, capture, replay); five train steps after a
+# static.save / deserialize_program + static.load round trip; the
+# served model under bench_serving's traffic (DENSE: buckets 1-16, 2
+# workers, 8 clients of 1-4 rows, 8 s) against LeNet's SLO; bench.py's
+# inference timing (_infer_lat_ms, best of 20) at batch 1 and 2048
+STATIC_INFER = dict(batches=(1, 16, 128), runs=3, train_steps=5,
+                    max_batch=2048, lat_iters=20)
+STATIC_INFER_SPEC = ([None, 1, 28, 28], "float32")
+
+
+def _static_served_check(inference, model_dir, done):
+    """Every served request against a second Predictor of the same
+    directory on its own rows at the bucket it rode (requests of one
+    bucket packed together, zero rows padding the last pass): bit for
+    bit.  Returns the passes run."""
+    ref = inference.create_predictor(inference.Config(model_dir))
+    by_bucket = {}
+    for r in done:
+        by_bucket.setdefault(r[2], []).append(r)
+    passes = 0
+    for b, reqs in sorted(by_bucket.items()):
+        i = 0
+        while i < len(reqs):
+            group, rows = [], 0
+            while i < len(reqs) and rows + reqs[i][0].shape[0] <= b:
+                group.append(reqs[i])
+                rows += reqs[i][0].shape[0]
+                i += 1
+            xs = np.zeros((b, 1, 28, 28), np.float32)
+            xs[:rows] = np.concatenate([g[0] for g in group])
+            want = ref.run([xs])[0]
+            passes += 1
+            off = 0
+            for x, out, _, _ in group:
+                n = x.shape[0]
+                check(out[0].shape == (n, 10) and np.array_equal(
+                    out[0], want[off:off + n]),
+                      f"static_infer: a {n}-row request served at bucket "
+                      f"{b} differs from the Predictor's rows")
+                off += n
+    return passes
+
+
+def phase_static_infer(torch, seed, card, lenet):
+    """static_lenet's trained LeNet as a static inference model on the
+    card: save_inference_model of the test clone, the Predictor against
+    Executor.run bit for bit, a saved train program's next steps against
+    the running one's bit for bit, the executor-backed Server under
+    bench_serving's traffic (every row against the Predictor, bit for
+    bit; no steady-state capture; the bucket-16 graph's nodes and device
+    ms), and bench.py's batch-1 latency and batch-2048 rate."""
+    from paddle_tpu_torch import inference, serving, static
+    t_phase = time.perf_counter()
+    main, test, logits, loss, sc = lenet
+    laps = {}
+    out = {"card": card}
+    out_dir = os.path.join(ROOT, "build", "static_infer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    model_dir = os.path.join(out_dir, "lenet")
+
+    t0 = time.perf_counter()
+    exe = static.Executor()
+    with static.scope_guard(sc):
+        fetches = static.save_inference_model(model_dir, ["img"], [logits],
+                                              exe, main_program=test)
+    pred = inference.create_predictor(inference.Config(model_dir))
+    ops = [op.type for op in pred._program.global_block().ops]
+    check(fetches == [logits.name] and pred.get_input_names() == ["img"]
+          and ops == LENET_OPS[:12] and pred._exe.device.type == "cuda"
+          and pred._scope is not sc,
+          f"static_infer: loaded program {ops}, feeds "
+          f"{pred.get_input_names()}, device {pred._exe.device}")
+    laps["save_load"] = round(time.perf_counter() - t0, 2)
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 20)
+    for b in STATIC_INFER["batches"]:
+        x = rng.randn(b, 1, 28, 28).astype("float32")
+        feed = {"img": x, "label": np.zeros(b, "int64")}
+        want = [exe.run(test, feed=feed, fetch_list=[logits], scope=sc)[0]
+                for _ in range(STATIC_INFER["runs"])]
+        got = [pred.run([x])[0] for _ in range(STATIC_INFER["runs"])]
+        check(want[0].shape == (b, 10) and np.isfinite(want[0]).all()
+              and all(np.array_equal(y, want[0]) for y in want + got),
+              f"static_infer: at batch {b} the Predictor's logits differ "
+              "from Executor.run's of the test clone (eager, captured, "
+              "replayed)")
+    out["predictor_vs_executor"] = {
+        "batches": list(STATIC_INFER["batches"]),
+        "runs_each": STATIC_INFER["runs"], "equal_bits": True,
+        "predictor_captures": len(pred._exe.compile_events),
+        "executor_captures": len(exe.compile_events)}
+    laps["predictor_vs_executor"] = round(time.perf_counter() - t0, 2)
+    log("static_infer", check="predictor_vs_executor",
+        **out["predictor_vs_executor"])
+
+    t0 = time.perf_counter()
+    names = [v.name for v in main.list_vars() if v.persistable]
+    prefix = os.path.join(out_dir, "train")
+    with static.scope_guard(sc):
+        static.save(main, prefix)
+    feeds = _lenet_feeds(seed + 30, STATIC_INFER["train_steps"],
+                         LENET["batch"])
+    running = _scope_copy(torch, static, sc, names, "cuda")
+    exe_a = static.Executor()
+    la = [exe_a.run(main, feed=f, fetch_list=[loss], scope=running)[0]
+          for f in feeds]
+    prog = static.deserialize_program(static.load_from_file(
+        prefix + ".pdmodel"))
+    loaded = static.Scope()
+    with static.scope_guard(loaded):
+        static.load(prog, prefix)
+    exe_b = static.Executor()
+    lb = [exe_b.run(prog, feed=f, fetch_list=[loss.name], scope=loaded)[0]
+          for f in feeds]
+    differ = [n for n in names if not torch.equal(
+        running.find_var(n), loaded.find_var(n).to(
+            running.find_var(n).device))]
+    check(all(np.array_equal(x, y) for x, y in zip(la, lb)) and not differ
+          and [op.type for op in prog.global_block().ops] == LENET_OPS,
+          f"static_infer: the reloaded train program's steps differ: "
+          f"losses {la} against {lb}, persistables {differ}")
+    out["train_round_trip"] = {
+        "steps": len(feeds), "losses": [float(x) for x in lb],
+        "equal_bits": True, "persistables": len(names),
+        "captures": len(exe_b.compile_events)}
+    laps["train_round_trip"] = round(time.perf_counter() - t0, 2)
+    log("static_infer", check="train_round_trip", **out["train_round_trip"])
+
+    t0 = time.perf_counter()
+    name = "lenet_static"
+    srv = serving.Server(serving.ServingConfig(workers=DENSE["workers"],
+                                               buckets=DENSE["buckets"]))
+    srv.register(name, model_dir, buckets=DENSE["buckets"],
+                 input_specs=[STATIC_INFER_SPEC])
+    try:
+        srv.start()
+        warmup_s = time.perf_counter() - t0
+        rt = srv._models[name]
+        sexe = rt.primary._exe
+        check(rt.backend == "executor" and len(sexe.compile_events) ==
+              len(DENSE["buckets"]) and all(
+                  rt.executables[b].captured for b in DENSE["buckets"]),
+              f"static_infer: warm-up captured {sexe.compile_events}")
+        t1 = time.perf_counter()
+        done, errors = _dense_traffic(srv, name, STATIC_INFER_SPEC, None,
+                                      seed)
+        laps["traffic"] = round(time.perf_counter() - t1, 2)
+        st = srv.stats(name)
+        steady = srv.compile_events_since_warmup()
+        check(not errors, f"static_infer: client errors {errors[:4]}")
+        check(not steady and st["steady_compiles"] == 0
+              and st["backend"] == "executor",
+              f"static_infer: steady-state captures {steady}")
+        srv.assert_zero_steady_state_recompiles()
+        check(st["completed"] == len(done) and len(done) > 0,
+              f"static_infer: {st['completed']} completed, {len(done)} "
+              "returned")
+        graphs = {e.feeds[0].shape[0]: e.graph
+                  for e in sexe._cache.values() if e.graph is not None}
+        top = DENSE["buckets"][-1]
+        check(sorted(graphs) == list(DENSE["buckets"]),
+              f"static_infer: graphs for buckets {sorted(graphs)}")
+        nodes = _graph_nodes(graphs[top], "")[1]
+        replay_ms = _replay_ms(torch, graphs[top])
+    finally:
+        srv.stop()
+    laps["serve"] = round(time.perf_counter() - t0, 2)
+
+    t0 = time.perf_counter()
+    passes = _static_served_check(inference, model_dir, done)
+    laps["served_check"] = round(time.perf_counter() - t0, 2)
+    kinds = {}
+    for kname, _ in nodes:
+        short = re.sub(r"^_Z\d+", "", kname)[:48]
+        kinds[short] = kinds.get(short, 0) + 1
+    slo = DENSE_SLO_P99_MS["lenet"]
+    out["serve"] = {
+        "model": name, "input": STATIC_INFER_SPEC,
+        "buckets": list(DENSE["buckets"]), "workers": DENSE["workers"],
+        "clients": DENSE["clients"], "seconds": DENSE["seconds"],
+        "warmup_s": round(warmup_s, 3), "qps": st["qps"],
+        "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"], "slo_p99_ms": slo,
+        "slo_met": st["p99_ms"] <= slo, "completed": st["completed"],
+        "rows": sum(r[0].shape[0] for r in done),
+        "batches": st["batches"], "avg_batch_rows": st["avg_batch_rows"],
+        "padding_ratio": st["padding_ratio"],
+        "steady_captures": len(steady),
+        "kernel_nodes_per_replay": len(nodes),
+        "replay_ms": round(replay_ms, 4),
+        "served_equal_predictor": f"{len(done)}/{len(done)}",
+        "check_passes": passes, "kernel_nodes_by_name": kinds}
+    log("static_infer", check="serve", **out["serve"])
+
+    t0 = time.perf_counter()
+    x1 = rng.randn(1, 1, 28, 28).astype("float32")
+    xm = rng.randn(STATIC_INFER["max_batch"], 1, 28, 28).astype("float32")
+    for x in (x1, xm):
+        for _ in range(2):              # eager, then the capture
+            pred.run([x])
+    b1_ms = _infer_lat_ms(pred, x1, STATIC_INFER["lat_iters"])
+    bm_ms = _infer_lat_ms(pred, xm, STATIC_INFER["lat_iters"])
+    laps["latency"] = round(time.perf_counter() - t0, 2)
+    out["latency"] = {
+        "batch1_ms": round(b1_ms, 4), "max_batch": STATIC_INFER["max_batch"],
+        "max_batch_ms": round(bm_ms, 4),
+        "max_batch_img_per_s": round(STATIC_INFER["max_batch"] / bm_ms * 1e3,
+                                     1),
+        "iters": STATIC_INFER["lat_iters"]}
+    log("static_infer", check="latency", **out["latency"])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out["laps_s"] = laps
+    log("static_infer", laps_s=laps,
+        total_s=round(time.perf_counter() - t_phase, 1))
     return out
+
+
+def _infer_lat_ms(predictor, x, iters):
+    """bench.py's ``_infer_lat_ms``: best of ``iters`` single runs through
+    ``Predictor.run`` (feeds in, the fetches' numpy copy out, which
+    fences the run)."""
+    best = None
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = predictor.run([x])
+        float(np.asarray(out[0]).ravel()[0])
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best * 1e3
 
 
 def main(argv=None):
@@ -6142,7 +6392,10 @@ def main(argv=None):
     phase_wide_deep(torch, args.seed, env["nvidia_smi"])
     torch.cuda.empty_cache()
     _at("static_lenet")
-    phase_static_lenet(torch, args.seed, env["nvidia_smi"])
+    _, lenet = phase_static_lenet(torch, args.seed, env["nvidia_smi"])
+    _at("static_infer")
+    phase_static_infer(torch, args.seed, env["nvidia_smi"], lenet)
+    del lenet
     _at("records")
     # checked last, so that a failure still prints every path's trajectory
     check(resnet["losses"][-1] < resnet["losses"][0],

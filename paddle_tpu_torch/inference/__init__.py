@@ -1,15 +1,28 @@
-"""paddle.inference of the port: the Predictor over a ``jit.save`` program.
+"""paddle.inference of the port: the Predictor over a ``jit.save`` program
+or a static inference model.
 
 Counterpart of ``paddle_tpu/inference/__init__.py`` (``Config``,
-``PredictorTensor``, ``Predictor``, ``create_predictor``) on its
-``jit.save`` branch: the Predictor loads the program and its parameters
-once (``jit.load``), on the Config's device (CUDA unless
-``disable_gpu()``), and runs it at any batch size the program's
-symbolic dims allow.  ``clone()`` shares the loaded program and its
-weights and keeps its own feed and result buffers, one clone per serving
-thread.  ``run`` returns numpy arrays; ``run_async`` returns the device
-tensors without waiting for them (a bf16 output reaches numpy as
-float32, exactly: numpy has no bfloat16).
+``PredictorTensor``, ``Predictor``, ``create_predictor``).  The Predictor
+loads its model once, on the Config's device (CUDA unless
+``disable_gpu()``):
+
+- a ``jit.save`` program (``jit.load``) runs at any batch size its
+  symbolic dims allow;
+- a ``static.save_inference_model`` directory (``__model__`` and
+  ``__params__``, the port's own format) loads into the Predictor's own
+  ``Scope``, as Paddle's AnalysisPredictor has one (the port's var names
+  are process-wide counters, so a directory saved by another process
+  can name a var of a live program), and runs through a static
+  ``Executor``: each new batch size is one new cache entry, eager on its
+  first run and captured on its second.  ``Config.set_quant_signature``
+  reaches that Executor's cache key as ``quant:<sig>``.
+
+``clone()`` shares the loaded program and its weights (and, on the
+static branch, the Executor and its scope) and keeps its own feed and
+result buffers, one clone per serving thread.  ``run`` returns numpy
+arrays; ``run_async`` returns the device tensors without waiting for
+them (a bf16 output reaches numpy as float32, exactly: numpy has no
+bfloat16).
 
 Frozen int8 programs (``quantization.save_int8_model``): under
 ``FLAGS_use_int8_inference`` a model whose prefix has a ``.int8``
@@ -17,11 +30,8 @@ sibling loads that one; a ``.int8`` prefix, or a directory or prefix
 holding only an int8 export, loads as such.  ``quant_info()`` is then
 the ``quant.json`` sidecar, and None on the float path.
 
-Not ported, and raising :class:`UnimplementedError` with the ROADMAP
-item: the static-program branch (the inference-model format of
-``save_inference_model``/``load_inference_model``, A13; the static
-Executor itself is ported) and the persistent compile cache
-(``set_optim_cache_dir``, A13).
+Not ported, and raising :class:`UnimplementedError` with its ROADMAP
+item: the persistent compile cache (``set_optim_cache_dir``, A4).
 """
 from __future__ import annotations
 
@@ -51,11 +61,20 @@ class Config:
             self._model_dir, self._prog_file = None, prog_file
         self._params_file = params_file
         self._device = None             # None: CUDA
+        self._quant_signature = None
 
     def set_model(self, prog_file, params_file=None):
-        device = self._device
+        device, sig = self._device, self._quant_signature
         self.__init__(prog_file, params_file)
-        self._device = device
+        self._device, self._quant_signature = device, sig
+
+    def set_quant_signature(self, signature):
+        """The quantization signature a static program's Executor folds
+        into its cache key (``quant:<signature>``)."""
+        self._quant_signature = signature
+
+    def quant_signature(self):
+        return self._quant_signature
 
     def model_dir(self):
         return self._model_dir
@@ -78,7 +97,7 @@ class Config:
     def set_optim_cache_dir(self, path):
         raise UnimplementedError(
             "Config.set_optim_cache_dir: the persistent compile cache is "
-            "not ported (ROADMAP A13); a served program's CUDA graphs are "
+            "not ported (ROADMAP A4); a served program's CUDA graphs are "
             "captured at Server.start()")
 
 
@@ -162,24 +181,40 @@ class PredictorTensor:
 
 
 class Predictor:
-    """AnalysisPredictor parity over a ``jit.save`` program."""
+    """AnalysisPredictor parity over a ``jit.save`` program or a static
+    inference model."""
 
     def __init__(self, config: Config):
-        from .. import jit as _jit
         d = config.model_dir() or config.prog_file()
         if d is None:
             raise ValueError("Config needs a model dir or a jit.save "
                              "prefix")
-        from ..quantization.freeze import load_quant_sidecar
+        self.device = resolve_device(config.device())
+        self._translated = None
+        self._quant_info = None
+        self._feeds: Dict[str, object] = {}
+        self._results: Dict[str, object] = {}
+        self._declared_shapes: Dict[str, tuple] = {}
         prefix = self._jit_prefix(d)
         if prefix is None:
-            raise UnimplementedError(
-                f"{d!r} holds no jit.save program: the static-program "
-                "Predictor (the inference-model format of "
-                "save_inference_model/load_inference_model) is not ported "
-                "(ROADMAP A13); export with paddle_tpu_torch.jit.save or "
-                "serving.export_for_serving")
-        self._quant_info = None
+            self._load_static(config, d)
+        else:
+            self._load_jit(prefix)
+
+    def _load_static(self, config, d):
+        from ..static import Executor, Scope, load_inference_model
+        self._scope = Scope()
+        self._program, self._feed_names, fetch_vars = load_inference_model(
+            d, scope=self._scope)
+        self._fetch_names = [v.name for v in fetch_vars]
+        self._exe = Executor(self.device)
+        sig = config.quant_signature()
+        if sig is not None:
+            self._exe.set_cache_extra_key(f"quant:{sig}")
+
+    def _load_jit(self, prefix):
+        from .. import jit as _jit
+        from ..quantization.freeze import load_quant_sidecar
         # the int8 sibling is chosen by the flag; a '.int8' prefix (or an
         # int8-only export) is int8 whatever the flag says
         if _flags.flag("use_int8_inference") \
@@ -188,15 +223,11 @@ class Predictor:
             prefix += ".int8"
         if prefix.endswith(".int8"):
             self._quant_info = load_quant_sidecar(prefix[:-len(".int8")])
-        self.device = resolve_device(config.device())
         self._translated = _jit.load(prefix, device=self.device)
         self._feed_names = [f"x{i}" for i in range(
             self._translated.num_inputs)]
         self._fetch_names = [f"out{i}" for i in range(
             self._translated.num_outputs)]
-        self._feeds: Dict[str, object] = {}
-        self._results: Dict[str, object] = {}
-        self._declared_shapes: Dict[str, tuple] = {}
 
     def quant_info(self):
         """The served model's quantization sidecar (``quant.json``) when
@@ -205,8 +236,9 @@ class Predictor:
 
     def clone(self):
         """AnalysisPredictor::Clone parity: a predictor sharing this one's
-        loaded program and weights (the same TranslatedLayer), with its
-        own feed and result buffers."""
+        loaded program and weights (the same TranslatedLayer; on the
+        static branch the same program, Executor and scope), with its own
+        feed and result buffers."""
         c = copy.copy(self)
         c._feeds, c._results, c._declared_shapes = {}, {}, {}
         return c
@@ -246,20 +278,30 @@ class Predictor:
         """Run the program on the feeds (or ``inputs``, positional) and
         return its outputs as device tensors, without waiting for the
         device; results land in the buffers ``copy_to_cpu`` reads."""
-        if inputs is not None:
-            for name, arr in zip(self._feed_names, inputs):
-                self._feeds[name] = arr
-        out = self._translated(*[self._feeds[n] for n in self._feed_names])
-        outs = out if isinstance(out, (list, tuple)) else [out]
-        self._results = dict(zip(self._fetch_names, outs))
-        return [self._results[n] for n in self._fetch_names]
+        return self._run(inputs, False)
 
     def run(self, inputs=None):
         """ZeroCopyRun parity; also takes positional arrays like the 2.x
         predictor.run(list).  Returns numpy arrays."""
-        outs = [_numpy(o) for o in self.run_async(inputs)]
+        return self._run(inputs, True)
+
+    def _run(self, inputs, to_numpy):
+        if inputs is not None:
+            for name, arr in zip(self._feed_names, inputs):
+                self._feeds[name] = arr
+        if self._translated is None:
+            # the Executor's numpy copy is the fence of a synchronous run
+            outs = self._exe.run(self._program, feed=dict(self._feeds),
+                                 fetch_list=self._fetch_names,
+                                 scope=self._scope, return_numpy=to_numpy)
+        else:
+            out = self._translated(*[self._feeds[n]
+                                     for n in self._feed_names])
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            if to_numpy:
+                outs = [_numpy(o) for o in outs]
         self._results = dict(zip(self._fetch_names, outs))
-        return outs
+        return [self._results[n] for n in self._fetch_names]
 
 
 def create_predictor(config: Config) -> Predictor:

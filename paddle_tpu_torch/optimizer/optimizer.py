@@ -165,6 +165,38 @@ def make_update_fn(opt, param_names):
     return update_fn
 
 
+def lr_hook(opt, lr_name):
+    """The pre-run hook that refreshes the scope's learning rate var
+    from ``opt`` (``Program._pre_run_hooks``), in place."""
+    def hook(scope):
+        scope.find_var(lr_name).fill_(_f32(opt.get_lr()))
+    return hook
+
+
+def rebuild_optimizer(class_name, config):
+    """The optimizer of a loaded ``@optimize`` op: the class built with
+    the saved learning rate, then its saved scalars, grad clip and decay
+    names set (``Optimizer._export_config``)."""
+    import sys
+
+    from ..nn import clip as clip_mod
+    cls = getattr(sys.modules[__name__], class_name)
+    opt = cls(learning_rate=config["_lr"])
+    for k, v in config.items():
+        if k not in ("_grad_clip_spec", "_decay_param_names"):
+            setattr(opt, k, v)
+    spec = config.get("_grad_clip_spec")
+    if spec is not None:
+        ccls = getattr(clip_mod, spec["class"])
+        clip = ccls.__new__(ccls)
+        vars(clip).update(spec["args"])
+        opt._grad_clip = clip
+    names = config.get("_decay_param_names")
+    if names is not None:
+        opt._apply_decay_fn = lambda n, keep=frozenset(names): n in keep
+    return opt
+
+
 class Optimizer:
     """paddle.optimizer.Optimizer parity (the eager path)."""
 
@@ -273,14 +305,15 @@ class Optimizer:
         lr_name = f"@optimizer_lr_{id(self)}"
         persistable(step_name, [], "int32", 0)
         persistable(lr_name, [], "float32", _f32(self.get_lr()))
-        program._pre_run_hooks.append(
-            lambda sc, opt=self, n=lr_name: sc.find_var(n).fill_(
-                _f32(opt.get_lr())))
+        program._pre_run_hooks.append(lr_hook(self, lr_name))
+        # the attrs carry what rebuilds the op's function and its lr hook
+        # when a saved train program is loaded (static/io.py)
         op = Operator(block, prim="@optimize",
                       inputs=param_names + [g.name for _, g in pgs]
                       + acc_names + [step_name, lr_name],
                       outputs=param_names + acc_names + [step_name],
                       attrs={"optimizer": type(self).__name__,
+                             "config": self._export_config(param_names),
                              "param_names": list(param_names),
                              "state_names": list(self._state_names)},
                       fn=make_update_fn(self, param_names),
@@ -288,6 +321,25 @@ class Optimizer:
         block.ops.append(op)
         program._version += 1
         return None, pgs
+
+    def _export_config(self, param_names):
+        """What :func:`rebuild_optimizer` needs: every scalar attribute
+        the update rule reads, the learning rate's value now (a loaded
+        program trains at the rate it was saved with), the grad clip's
+        class and scalars, and AdamW's decay choice as the names it
+        decays."""
+        cfg = {k: v for k, v in vars(self).items()
+               if isinstance(v, (int, float, bool, str))}
+        cfg["_lr"] = _f32(self.get_lr())
+        if self._grad_clip is not None:
+            cfg["_grad_clip_spec"] = {
+                "class": type(self._grad_clip).__name__,
+                "args": {k: v for k, v in vars(self._grad_clip).items()
+                         if isinstance(v, (int, float, bool, str))}}
+        fn = getattr(self, "_apply_decay_fn", None)
+        if fn is not None:
+            cfg["_decay_param_names"] = [n for n in param_names if fn(n)]
+        return cfg
 
     def clear_grad(self, set_to_zero=False):
         for _, p in self._params:

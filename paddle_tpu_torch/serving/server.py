@@ -9,8 +9,9 @@ a scheduler thread packs them FIFO into batch buckets; worker threads
 run each batch on the server's device and resolve the requests' futures
 with their own rows.
 
-Dense models (``register``/``submit``) are ``jit.save`` programs, loaded
-through ``inference.Predictor``.  The JAX package compiles one
+Dense models (``register``/``submit``) are ``jit.save`` programs or
+static ``save_inference_model`` directories, loaded through
+``inference.Predictor``.  The JAX package compiles one
 executable per (model, bucket) ahead of time; the port captures one CUDA
 graph per (model, bucket) at ``start()`` (:class:`_BucketGraph`), and a
 batch is copied into the graph's input buffers, replayed, and its
@@ -21,6 +22,15 @@ under ``FLAGS_serving_strict``, or is captured and recorded as a
 steady-state capture (``compile_events_since_warmup``).  On the CPU
 nothing is captured: warm-up runs each bucket once and a batch runs the
 program eagerly through the worker's ``Predictor.clone()``.
+
+A static inference model (backend ``"executor"``; its ``input_specs``
+name the feeds' shapes and dtypes) runs through the Predictor's static
+``Executor``: warm-up runs each bucket twice, since the Executor captures
+an entry on its second run, and marks the Executor's steady state; a
+batch runs synchronously through the worker's clone (the Executor's
+numpy copy of the fetches fences it), the clones taking turns on each
+bucket's graph under the entry's lock.  The zero-capture check reads the
+Executor's ``compile_events_since_warmup()``.
 
 Decode models (``register_decode``/``submit_decode``): ``start`` warms
 every (batch bucket x prefill bucket) pair before a single request is
@@ -76,12 +86,16 @@ __all__ = ["ModelSpec", "export_for_serving", "ServingConfig", "Server"]
 class ModelSpec:
     """One served dense model: a ``jit.save`` prefix (``m`` for
     ``m.pdmodel``; with a ``<prefix>.serving.json`` manifest from
-    :func:`export_for_serving`) and its bucket ladder (default
-    FLAGS_serving_buckets)."""
+    :func:`export_for_serving`) or a static ``save_inference_model``
+    directory, and its bucket ladder (default FLAGS_serving_buckets).
+    ``input_specs`` (``[(shape, dtype), ...]`` or ``InputSpec``s, a None
+    leading dim) is required for a static directory, whose feeds carry
+    no shape to bucket on."""
 
     name: str
     path: str
     buckets: Optional[Sequence[int]] = None
+    input_specs: Optional[Sequence] = None
 
 
 def _manifest_path(prefix: str) -> str:
@@ -269,11 +283,26 @@ class _BucketGraph:
         return _InFlight(host, done)
 
 
+class _ExecutorBucket(_EagerBucket):
+    """One bucket of a static inference model: warm-up runs it twice on
+    CUDA, so that the Executor's entry is captured before traffic (once
+    on the CPU, where nothing is captured); a batch runs synchronously
+    through the worker's clone."""
+
+    def __init__(self, predictor, templates, bucket):
+        self.captured = predictor.device.type == "cuda"
+        self.predictor = predictor
+        for _ in range(2 if self.captured else 1):
+            predictor.clone().run([np.zeros((bucket,) + rest, dt)
+                                   for rest, dt in templates])
+
+
 class _ModelRuntime:
     """A loaded dense model: its predictors, bucket ladder, one
     executable per bucket (a :class:`_BucketGraph` on CUDA, an
-    :class:`_EagerBucket` on the CPU), the warm-up and steady-state
-    capture events, and serving metrics."""
+    :class:`_EagerBucket` on the CPU, an :class:`_ExecutorBucket` for a
+    static inference model), the warm-up and steady-state capture
+    events, and serving metrics."""
 
     kind = "dense"
 
@@ -283,7 +312,7 @@ class _ModelRuntime:
         self.device = device
         self.site = f"serving:{spec.name}"
         self.ladder = BucketLadder.from_flag(spec.buckets)
-        self.backend = None            # "jit" | "jit_per_bucket"
+        self.backend = None       # "jit" | "jit_per_bucket" | "executor"
         self.primary = None
         self.predictors: Dict[int, object] = {}      # bucket -> Predictor
         self.executables: Dict[int, object] = {}     # bucket -> executable
@@ -339,14 +368,18 @@ class _ModelRuntime:
             specs = [(shape, to_torch_dtype(dt))
                      for shape, dt in manifest["input_specs"]]
         else:
-            self.backend = "jit"
             self.primary = self._predictor(self.spec.path)
-            specs = self.primary._translated.input_specs()
-            lead = {shape[0] for shape, _ in specs}
-            if len(lead) == 1 and None not in lead:
-                # a fixed-batch export without per-bucket siblings: the
-                # ladder collapses to the one batch it can run
-                self.ladder = BucketLadder([lead.pop()])
+            if self.primary._translated is None:
+                self.backend = "executor"
+                specs = self._specs_of_executor(manifest)
+            else:
+                self.backend = "jit"
+                specs = self.primary._translated.input_specs()
+                lead = {shape[0] for shape, _ in specs}
+                if len(lead) == 1 and None not in lead:
+                    # a fixed-batch export without per-bucket siblings:
+                    # the ladder collapses to the one batch it can run
+                    self.ladder = BucketLadder([lead.pop()])
             self.predictors = {b: self.primary for b in self.ladder}
         for i, (shape, dt) in enumerate(specs):
             if any(d is None for d in shape[1:]):
@@ -362,8 +395,50 @@ class _ModelRuntime:
             self.np_dtypes.append(np.dtype(_NUMPY[dt]))
         self.n_inputs = len(self.templates)
 
+    def _specs_of_executor(self, manifest):
+        """(shape, torch dtype) of each feed of a static inference model,
+        from ``ModelSpec.input_specs`` (or a manifest's)."""
+        from ..jit import to_torch_dtype
+        from ..static import InputSpec
+        specs = self.spec.input_specs
+        if specs is None and manifest is not None:
+            specs = manifest.get("input_specs")
+        if specs is None:
+            raise PreconditionNotMetError(
+                f"serving model {self.name!r} is executor-backed (a static "
+                "save_inference_model dir): register it with input_specs="
+                "[(shape, dtype), ...]; its feeds carry no shape to bucket "
+                "on")
+        out = []
+        for s in specs:
+            shape, dtype = (s.shape, s.dtype) if isinstance(s, InputSpec) \
+                else s
+            out.append((list(shape), to_torch_dtype(dtype)))
+        feeds = self.primary.get_input_names()
+        if len(out) != len(feeds):
+            raise InvalidArgumentError(
+                f"serving model {self.name!r}: {len(out)} input_specs for "
+                f"{len(feeds)} feeds ({feeds})")
+        return out
+
+    def executor_events(self):
+        """A static model's Executor's captures since the warm-up."""
+        if self.backend != "executor":
+            return []
+        return [dict(e, model=self.name)
+                for e in self.primary._exe.compile_events_since_warmup()]
+
+    def steady_events(self, mark):
+        """Captures after the warm-up mark, the Executor's included."""
+        return self.events[mark:] + self.executor_events()
+
     # -- warm-up: one graph per bucket ---------------------------------------
     def _build(self, bucket):
+        if self.backend == "executor":
+            return _ExecutorBucket(self.predictors[bucket],
+                                   [(r, np.dtype(n)) for (r, _), n in
+                                    zip(self.templates, self.np_dtypes)],
+                                   bucket)
         if self.device.type == "cuda":
             return _BucketGraph(self.predictors[bucket].clone(),
                                 self.templates, bucket, self.stream)
@@ -387,6 +462,8 @@ class _ModelRuntime:
         for b in self.ladder:
             self.executables[b] = self._build(b)
             self._event("serving_capture", b)
+        if self.backend == "executor":
+            self.primary._exe.mark_warmup()
         self.admitted = True
 
     def late_compile(self, bucket):
@@ -932,7 +1009,9 @@ class Server:
         empty."""
         out = []
         for name, mark in self._warmup_marks.items():
-            out.extend(self._models[name].events[mark:])
+            rt = self._models[name]
+            out.extend(rt.steady_events(mark) if rt.kind == "dense"
+                       else rt.events[mark:])
         return out
 
     def assert_zero_steady_state_recompiles(self) -> None:
@@ -940,7 +1019,8 @@ class Server:
         if evs:
             raise PreconditionNotMetError(
                 f"steady-state recompile(s) detected ({len(evs)}): "
-                + "; ".join(f"{e['site']} {e['kind']} bucket {e['bucket']}"
+                + "; ".join(f"{e['site']} {e['kind']} "
+                            f"{e.get('bucket', e.get('feeds'))}"
                             for e in evs[:4]))
 
     def stats(self, model: Optional[str] = None) -> dict:
@@ -967,7 +1047,8 @@ class Server:
             "padding_ratio": round(c["padded_rows"] /
                                    (rows + c["padded_rows"]), 4),
             "queue_depth": self._queue.depth() if self._queue else 0,
-            "steady_compiles": c["steady_compiles"],
+            "steady_compiles": c["steady_compiles"] + (
+                len(rt.executor_events()) if rt.kind == "dense" else 0),
         }
         if rt.kind == "dense":
             out["captured"] = self.device.type == "cuda"
@@ -1000,7 +1081,8 @@ class Server:
                 c = dict(rt.counters)
             rows += c["rows"]
             batches += c["batches"]
-            steady += c["steady_compiles"]
+            steady += c["steady_compiles"] + (
+                len(rt.executor_events()) if rt.kind == "dense" else 0)
         out["batch_occupancy_rows"] = round(rows / batches, 3) \
             if batches else 0.0
         out["steady_compiles"] = steady

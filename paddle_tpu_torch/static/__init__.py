@@ -1,14 +1,20 @@
-"""paddle.static: the static graph, as far as training runs on it.
+"""paddle.static: the static graph, its training and its inference
+models.
 
-Counterpart of ``paddle_tpu/static/__init__.py``: ``Program``,
-``program_guard``, ``data``, the layer functions ``nn.fc``, ``nn.conv2d`` and
-``nn.pool2d``, ``append_backward``/``gradients``, ``Executor`` (one
-captured CUDA graph per program and feed signature), ``Scope``, the
-persistables on disk, and ``InputSpec`` (the signature ``jit.save``
-and ``serving.export_for_serving`` export against).  Not ported
-(ROADMAP A13): ``save_inference_model``/``load_inference_model``,
-``CompiledProgram``, random ops in captured programs, control flow, the
-other ``static.nn`` layers and the extras of ``api_extra.py``.
+Counterpart of ``paddle_tpu/static/__init__.py``: ``Program`` (with
+``_prune``), ``program_guard``, ``data``, the layer functions ``nn.fc``,
+``nn.conv2d`` and ``nn.pool2d``, ``append_backward``/``gradients``,
+``Executor`` (one captured CUDA graph per program, scope and feed
+signature, and ``set_cache_extra_key``), ``Scope``, the persistables on
+disk, ``save_inference_model``/``load_inference_model``, the
+serialize and program-state family of ``api_extra.py``
+(``serialize_program`` ... ``save``/``load``, ``get_program_state``,
+``load_program_state``, ``set_program_state``), and ``InputSpec`` (the
+signature ``jit.save`` and ``serving.export_for_serving`` export
+against).  Files are the port's own format (``static/io.py``).  Not
+ported (ROADMAP A13): ``CompiledProgram``, random ops in captured
+programs, control flow, the other ``static.nn`` layers and the rest of
+``api_extra.py`` (``py_func``, ``Print``, the place helpers).
 """
 from __future__ import annotations
 
@@ -18,7 +24,12 @@ from .program import (  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from .backward import append_backward, gradients  # noqa: F401
 from .io import (  # noqa: F401
-    load_persistables, load_vars, save_persistables, save_vars)
+    load_inference_model, load_params, load_persistables, load_vars,
+    save_inference_model, save_params, save_persistables, save_vars)
+from .api_extra import (  # noqa: F401
+    deserialize_persistables, deserialize_program, get_program_state, load,
+    load_from_file, load_program_state, save, save_to_file,
+    serialize_persistables, serialize_program, set_program_state)
 from .patch import apply_patches as _apply_patches
 from . import nn  # noqa: F401
 

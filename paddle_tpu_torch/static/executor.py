@@ -23,11 +23,19 @@ next replay.  On the CPU (``Executor("cpu")``) and
 with ``use_program_cache=False`` every run replays eagerly.  A program
 holding a random op (dropout) is refused a capture; there is no silent
 eager path.
+
+``set_cache_extra_key`` adds a token to every key (the Predictor passes
+its model's quantization signature, ``quant:<sig>``), so programs that
+differ only in it never share a capture.  Runs are thread-safe: one
+lock guards the cache, and each entry's lock is held from the copy of
+the feeds into its buffers to the copy of its fetches out, so two
+Predictor clones serving one program take turns on its graph.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -119,6 +127,15 @@ def _collect_persistables(program, scope, names, device):
     return vals
 
 
+# cuDNN's deterministic switch is process-wide: every eager replay and
+# capture sets it and restores it under this lock, so two threads never
+# restore each other's setting mid-run.  A graph replay reads no switch
+# (its kernels were chosen at capture); the Server captures at warm-up,
+# before its workers start.  An eager cuDNN call in another thread while
+# a replay here holds the switch on runs deterministically too.
+_CUDNN_LOCK = threading.Lock()
+
+
 def _backward_at(ops):
     """Index of a backward op whose forward segment is every op before
     it (the replay then differentiates what it just ran), else None."""
@@ -178,6 +195,8 @@ class _Entry:
         self.runs = 0
         self.graph = None
         self.feeds = self.persist = self.outs = None
+        # held from the feeds' copy in to the fetches' copy out
+        self.lock = threading.Lock()
 
     def replay(self, feed_vals, persist):
         env = dict(zip(self.feed_names, feed_vals))
@@ -187,11 +206,12 @@ class _Entry:
         # eager runs of LeNet's conv weight gradients differ in the last
         # bits on the card, and a replay could not equal the eager run
         cudnn = torch.backends.cudnn
-        prev, cudnn.deterministic = cudnn.deterministic, True
-        try:
-            replay(self.program.global_block().ops, env, self.device)
-        finally:
-            cudnn.deterministic = prev
+        with _CUDNN_LOCK:
+            prev, cudnn.deterministic = cudnn.deterministic, True
+            try:
+                replay(self.program.global_block().ops, env, self.device)
+            finally:
+                cudnn.deterministic = prev
         for n in self.written:
             if env[n] is not held[n]:
                 held[n].copy_(env[n])
@@ -222,6 +242,14 @@ class Executor:
         self.compile_events: List[dict] = []
         self._warmup_mark = 0
         self._train_stats = {"chunks": 0, "max_chunk_bytes": 0}
+        self._cache_extra_key: Optional[str] = None
+        self._lock = threading.Lock()           # guards _cache
+
+    def set_cache_extra_key(self, key):
+        """Fold ``key`` into every cache key (None: the plain key).  The
+        Predictor passes a model's quantization signature here, so an int8
+        program and a float one never share a capture."""
+        self._cache_extra_key = None if key is None else str(key)
 
     # -- compile events ------------------------------------------------------
     def mark_warmup(self):
@@ -265,7 +293,8 @@ class Executor:
                use_program_cache):
         key = (program._uid, program._version, id(scope),
                tuple((n, tuple(v.shape), v.dtype)
-                     for n, v in zip(feed_names, feed_vals)))
+                     for n, v in zip(feed_names, feed_vals)),
+               self._cache_extra_key)
         entry = self._cache.get(key) if use_program_cache else None
         if entry is None or not set(fetch_names) <= set(entry.union):
             union = list(entry.union) if entry else []
@@ -329,15 +358,19 @@ class Executor:
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
         feed_names, feed_vals = self._feeds(program, feed or {})
-        entry = self._entry(program, scope, feed_names, feed_vals,
-                            fetch_names, use_program_cache)
-        for hook in program._pre_run_hooks:
-            hook(scope)
-        outs = self._step(entry, scope, feed_vals)
-        picked = [outs[entry.union.index(n)] for n in fetch_names]
-        if return_numpy:
-            return [t.cpu().numpy() for t in picked]
-        return [t.clone() for t in picked]
+        with self._lock:
+            entry = self._entry(program, scope, feed_names, feed_vals,
+                                fetch_names, use_program_cache)
+        with entry.lock:
+            for hook in program._pre_run_hooks:
+                hook(scope)
+            outs = self._step(entry, scope, feed_vals)
+            picked = [outs[entry.union.index(n)] for n in fetch_names]
+            if return_numpy:
+                return [t.cpu().numpy() for t in picked]
+            # copies enqueued before the lock is let go: on one stream, the
+            # next replay of this entry writes its outputs after them
+            return [t.clone() for t in picked]
 
     # -- dataset-driven training --------------------------------------------
     def train_from_dataset(self, program=None, dataset=None, scope=None,
@@ -385,16 +418,18 @@ class Executor:
                 for i in range(len(dev[0])):
                     vals = [t[i] for t in dev]
                     if entry is None:
-                        entry = self._entry(program, scope, feed_names, vals,
-                                            fetch_names, True)
+                        with self._lock:
+                            entry = self._entry(program, scope, feed_names,
+                                                vals, fetch_names, True)
                         pos = [entry.union.index(n) for n in fetch_names]
-                    outs = self._step(entry, scope, vals)
-                    if bufs is None:
-                        bufs = [torch.empty((len(dev[0]),) + tuple(
-                            outs[p].shape), dtype=outs[p].dtype,
-                            device=self.device) for p in pos]
-                    for b, p in zip(bufs, pos):
-                        b[i].copy_(outs[p])
+                    with entry.lock:
+                        outs = self._step(entry, scope, vals)
+                        if bufs is None:
+                            bufs = [torch.empty((len(dev[0]),) + tuple(
+                                outs[p].shape), dtype=outs[p].dtype,
+                                device=self.device) for p in pos]
+                        for b, p in zip(bufs, pos):
+                            b[i].copy_(outs[p])
                 self._train_stats["chunks"] += 1
                 for n, b in zip(fetch_names, bufs or []):
                     got[n].append(b.cpu().numpy())

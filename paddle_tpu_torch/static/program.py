@@ -227,6 +227,9 @@ class Program:
         self._parameters: List[str] = []
         self._version = 0
         self._startup: Optional[Program] = None
+        # what save_inference_model pruned the program to
+        self._feed_names: List[str] = []
+        self._fetch_names: List[str] = []
         # callables(scope) the Executor runs before each run: they refresh
         # scope-held hyperparameters (the optimizer's learning rate), so
         # a schedule reaches a captured program as data
@@ -271,6 +274,8 @@ class Program:
         p._parameters = list(self._parameters)
         p._startup = self._startup
         p._pre_run_hooks = list(self._pre_run_hooks)
+        p._feed_names = list(self._feed_names)
+        p._fetch_names = list(self._fetch_names)
         if for_test:
             for b in p.blocks:
                 for op in b.ops:
@@ -279,6 +284,36 @@ class Program:
                     if op.prim == "dropout":
                         op.attrs["p"] = 0.0
         return p
+
+    def _prune(self, feed_names, fetch_names):
+        """The inference subgraph of ``fetch_names`` fed at
+        ``feed_names``: walking back from the fetches, every op with a
+        needed output is kept and its inputs become needed; a feed is
+        never produced, so the walk stops there.  The copy keeps only the
+        vars its ops, feeds and fetches name."""
+        feeds = set(feed_names)
+        needed = set(fetch_names)
+        kept = []
+        for op in reversed(self.global_block().ops):
+            if any(o in needed and o not in feeds for o in op.output_names):
+                kept.append(op)
+                needed.update(op.input_names)
+        kept.reverse()
+        pruned = self.clone()
+        pb = pruned.global_block()
+        pb.ops = [Operator(pb, op.prim, op.input_names, op.output_names,
+                           _copy_attrs(op.attrs), fn=op._fn,
+                           type_name=op.type) for op in kept]
+        used = feeds | set(fetch_names)
+        for op in kept:
+            used.update(op.input_names + op.output_names)
+        pb.vars = {n: v for n, v in pb.vars.items() if n in used}
+        pruned._parameters = [n for n in self._parameters if n in used]
+        if not any(op.prim == "@optimize" for op in kept):
+            pruned._pre_run_hooks = []      # the optimizer's lr refresh
+        pruned._feed_names = list(feed_names)
+        pruned._fetch_names = list(fetch_names)
+        return pruned
 
     def __repr__(self):
         lines = [f"Program(blocks={len(self.blocks)})"]

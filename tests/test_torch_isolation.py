@@ -47,7 +47,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 20 and all(map(os.path.exists, files[:2]))
     for new in ("quantization/ptq.py", "quantization/freeze.py",
-                "ops/int8.py"):
+                "ops/int8.py", "static/api_extra.py"):
         assert os.path.join(ROOT, "paddle_tpu_torch", new) in files
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f))
                                              & set(BANNED))
@@ -87,6 +87,9 @@ def test_package_imports_with_jax_unimportable():
             "load_jax_wide_deep)\n"
             "import paddle_tpu_torch.static.executor, "
             "paddle_tpu_torch.static.backward, paddle_tpu_torch.static.io\n"
+            "import paddle_tpu_torch.static.api_extra\n"
+            "from paddle_tpu_torch.static import (deserialize_program, "
+            "load_inference_model, save_inference_model)\n"
             "from paddle_tpu_torch.static import (Executor, Program, data, "
             "nn, program_guard)\n"
             "from paddle_tpu_torch.framework.bridge import "
@@ -253,6 +256,46 @@ def test_static_executor_needs_cuda_unless_asked_for_cpu(monkeypatch):
             static.Executor(place)
     for place in ("cpu", paddle.CPUPlace()):
         assert static.Executor(place).device.type == "cpu"
+
+
+def test_static_predictor_and_server_need_cuda_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """A save_inference_model directory: the static Predictor needs CUDA
+    unless its Config asks for the CPU, and so does the executor-backed
+    Server."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, static
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.scope_guard(static.Scope()), \
+                static.program_guard(main, startup):
+            out = static.nn.fc(static.data("x", [None, 4], "float32"), 2)
+            exe = static.Executor("cpu")
+            exe.run(startup)
+            static.save_inference_model(str(tmp_path), ["x"], [out], exe,
+                                        main_program=main)
+    finally:
+        paddle.disable_static()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(PreconditionNotMetError):
+        inference.create_predictor(inference.Config(str(tmp_path)))
+    cfg = inference.Config(str(tmp_path))
+    cfg.disable_gpu()
+    p = inference.create_predictor(cfg)
+    assert p._exe.device.type == "cpu"
+    assert p.run([np.ones((2, 4), np.float32)])[0].shape == (2, 2)
+    srv = serving.Server(device="cpu")
+    srv.register("fc", str(tmp_path), buckets=(1, 2),
+                 input_specs=[([None, 4], "float32")])
+    srv.start()
+    try:
+        got = srv.submit("fc", [np.ones((2, 4), np.float32)]).result(
+            timeout=60)
+        assert got[0].shape == (2, 2)
+        assert srv.stats("fc")["backend"] == "executor"
+    finally:
+        srv.stop()
 
 
 def test_int8_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,

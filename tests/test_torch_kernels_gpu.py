@@ -1665,3 +1665,97 @@ def test_static_program_with_a_random_op_is_not_captured(cuda):
         out = exe.run(main, feed=feed, fetch_list=[y],
                       use_program_cache=False)[0]
         assert out.shape == (2, 4) and exe.compile_events == []
+
+
+def _static_lenet_model(tmp_path, steps=2):
+    """LeNet trained ``steps`` SGD steps, its test clone (taken before
+    ``minimize``) saved as a static inference model in ``tmp_path``.
+    Returns (executor, test clone, logits, scope)."""
+    with _static_program() as (paddle, static, main, startup):
+        img = static.data("img", [None, 1, 28, 28], "float32")
+        label = static.data("label", [None], "int64")
+        h = static.nn.conv2d(img, 6, 5, padding=2, act="relu")
+        h = paddle.nn.functional.max_pool2d(h, 2, 2)
+        h = static.nn.conv2d(h, 16, 5, act="relu")
+        h = paddle.nn.functional.max_pool2d(h, 2, 2)
+        h = paddle.flatten(h, start_axis=1)
+        h = static.nn.fc(h, 84, activation="relu")
+        logits = static.nn.fc(h, 10)
+        loss = paddle.nn.functional.cross_entropy(logits, label)
+        test = main.clone(for_test=True)
+        paddle.optimizer.SGD(learning_rate=0.01).minimize(loss)
+        exe = static.Executor()
+        exe.run(startup)
+        for k in range(steps):
+            exe.run(main, feed=_lenet_feed(k), fetch_list=[loss])
+        static.save_inference_model(str(tmp_path), ["img"], [logits], exe,
+                                    main_program=test)
+        return exe, test, logits, static.global_scope()
+
+
+def test_static_predictor_equals_executor_run(cuda, tmp_path):
+    """The static Predictor of a saved LeNet on the card (its own scope)
+    against Executor.run of the test clone: three runs at each batch
+    (eager, capture, replay) on both sides, bit for bit."""
+    from paddle_tpu_torch import inference
+    exe, test, logits, scope = _static_lenet_model(tmp_path)
+    pred = inference.create_predictor(inference.Config(str(tmp_path)))
+    assert pred._exe.device.type == "cuda" and pred._scope is not scope
+    for b in (1, 8, 32):
+        feed = _lenet_feed(100 + b, b)
+        want = [exe.run(test, feed=feed, fetch_list=[logits], scope=scope)[0]
+                for _ in range(3)]
+        got = [pred.run([feed["img"]])[0] for _ in range(3)]
+        for x in want[1:] + got:
+            np.testing.assert_array_equal(x, want[0])
+    assert len(pred._exe.compile_events) == 3
+
+
+def test_static_server_two_workers_serves_every_row(cuda, tmp_path):
+    """An executor-backed Server with 2 workers under 8 concurrent
+    clients: every served row equals a second Predictor's on the same
+    request padded to the bucket it rode, bit for bit (the workers'
+    clones take turns on each bucket's graph), and no capture after the
+    warm-up."""
+    import threading
+
+    from paddle_tpu_torch import inference, serving
+    _static_lenet_model(tmp_path)
+    srv = serving.Server(serving.ServingConfig(workers=2))
+    srv.register("lenet", str(tmp_path), buckets=(1, 2, 4, 8),
+                 input_specs=[([None, 1, 28, 28], "float32")])
+    done, errors = [], []
+
+    def client(i):
+        rng = np.random.RandomState(i)
+        mine = []
+        try:
+            for _ in range(25):
+                x = rng.randn(int(rng.randint(1, 5)), 1, 28, 28).astype(
+                    "float32")
+                fut = srv.submit("lenet", [x])
+                mine.append((x, fut.result(timeout=60)[0], fut.bucket))
+        except Exception as e:   # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        done.extend(mine)
+
+    srv.start()
+    try:
+        assert srv.stats("lenet")["backend"] == "executor"
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads) and not errors
+        assert srv.compile_events_since_warmup() == []
+        srv.assert_zero_steady_state_recompiles()
+        assert srv.stats("lenet")["completed"] == len(done) == 200
+    finally:
+        srv.stop()
+    ref = inference.create_predictor(inference.Config(str(tmp_path)))
+    for x, got, bucket in done:
+        xs = np.zeros((bucket, 1, 28, 28), np.float32)
+        xs[:len(x)] = x
+        np.testing.assert_array_equal(got, ref.run([xs])[0][:len(x)])

@@ -231,6 +231,30 @@ without printing a result:
               gradient, then two Adam steps with ClipGradByGlobalNorm(1.0),
               NoamDecay and label-smoothed soft labels: the losses and
               parameters);
+  9c. moe   bench.py's moe workload at its chip configuration (bench.py:
+              1447-1578: a GPT-MoE of vocab 128, hidden 512, 8 layers, 8
+              heads, 16 experts, top-2, every other block MoE, capacity
+              factor 1.25, random weights from --seed; a dense GPT whose
+              FFN width bench.py's bisection matches to its parameter
+              count; AdamW 1e-3, f32, TF32 off, batch 32 x seq 128):
+              B1's f32 forward and B2's f32 dQ and dK/dV at B=32, N=8,
+              S=128, H=64 under GPTModel's (1,1,S,S) causal bias against
+              their plain versions, twice on one input (the same bits),
+              and timed beside the plain versions, SDPA and the bound;
+              each model trained as bench.py times it (2 warm-up steps,
+              the best of 3 runs of 20): step s, tok/s, the MoE/dense
+              ratio, B1/B2 launches = 8 layers x steps, no nvcc build or
+              CUDA graph capture in the timed runs; one traced MoE step
+              (device busy time by kind, idle share); the routed MoE
+              against its dense-dispatch control, 3 steps at top-k 2 and
+              (2 layers) top-k 1: losses and parameters bit for bit;
+              kernels on against off (2 steps; each MoE layer's expert
+              ids and kept slots compared first, a flip only at a near
+              tie); the card against the port on the CPU (the dense GPT
+              at 2 layers, batch 4, 3 steps; the MoE's step-1 expert
+              ids); the capacity block at cf 1.0 and 1.25 through
+              publish_moe_metrics (aux >= 1, load ratios summing to E);
+              the all-to-all census (0 on one card);
  10. batch_probe  one short prompt decoded alone and in an 8-row batch,
               module by module: no row may diverge;
  11. fused_kernels  B5 stats/apply, B6 reduce/dx and B7 against their
@@ -3334,7 +3358,9 @@ def _fa_inputs(torch, g, B, N, Sq, Sk, H, bias, dtype, layout="bnsh"):
     projection, strided views the wrappers pass to the kernels uncopied.
     ``bias`` "pad" is BERT's padding mask: (B, 1, 1, Sk), 0 over each
     row's first 64..Sk keys and -1e4 after; "square" is the
-    Transformer's causal target mask (1, 1, Sq, Sk) of 0 and -1e30."""
+    Transformer's causal target mask (1, 1, Sq, Sk) of 0 and -1e30;
+    "gpt" is GPTModel's additive causal bias (1, 1, Sq, Sk) of 0 and
+    -1e4."""
     def mk(S):
         if layout == "bnsh":
             return torch.randn(B, N, S, H, generator=g, device="cuda") \
@@ -3348,10 +3374,10 @@ def _fa_inputs(torch, g, B, N, Sq, Sk, H, bias, dtype, layout="bnsh"):
         return q, k, v, do, torch.where(
             torch.arange(Sk, device="cuda")[None] < lens[:, None], 0.0,
             -1e4)[:, None, None, :]
-    if bias == "square":
+    if bias in ("square", "gpt"):
         keep = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda").tril()
         return q, k, v, do, torch.zeros(1, 1, Sq, Sk, device="cuda") \
-            .masked_fill_(~keep, -1e30)
+            .masked_fill_(~keep, -1e30 if bias == "square" else -1e4)
     shape = {None: None, "b11s": (B, 1, 1, Sk), "11ss": (1, 1, Sq, Sk),
              "bnss": (B, N, Sq, Sk)}[bias]
     b = None
@@ -3371,11 +3397,12 @@ def _fa_bound(kind, B, N, Sq, Sk, H, elt, bias_bytes):
     dd) read once, the outputs written once, over HBM bandwidth; against
     the products the kernel does (QK^T and PV; the backward recomputes
     QK^T and does dO V^T, then dS K, or dS^T Q and P^T dO) over the
-    peak rate of the instruction that does them: bf16's on the tensor
-    cores; the f32 forward's TF32 on the tensor cores (its split into
-    three TF32 products for each is the kernel's overhead, not the
-    function's work, and is not charged); the f32 backward's f32 FMA
-    rate.  Non-causal pairs: the training path's case."""
+    peak rate for their type: bf16's on the tensor cores; f32's at
+    TF32's tensor-core rate, forward and backward alike, since the card
+    does f32-accurate attention there (B1's split into three TF32
+    products for each is the kernel's overhead, not the function's work,
+    and is not charged; a kernel on the f32 FMA units is charged the
+    same).  Non-causal pairs: the training path's case."""
     bnh = B * N * H
     rows = B * N * Sq * 4                     # one f32 per query row
     if kind == "fwd":
@@ -3389,8 +3416,7 @@ def _fa_bound(kind, B, N, Sq, Sk, H, elt, bias_bytes):
         ops = 8 * B * N * Sq * Sk * H
     nbytes += bias_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    rate = ("bfloat16" if elt == 2 else "tfloat32" if kind == "fwd"
-            else "float32")
+    rate = "bfloat16" if elt == 2 else "tfloat32"
     t_ops = ops / PEAK_OPS_PER_S[rate] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, ops
@@ -3471,18 +3497,20 @@ def _fa_model_checks(torch, fa, g, shape, bias, worst):
         uncopied_views=True, bf16_repeats_bit_for_bit=True, ok=True)
 
 
-def _fa_timing(torch, fa, g, shape, bias):
+def _fa_timing(torch, fa, g, shape, bias, dtype=None):
     """Device ms of a call of each kernel at a model's training shape in
-    bf16 (the model's strided views, FA_ROTATE input sets rotated: > 50
-    MB of L2 between reuses), beside its plain version, its bound, and
-    SDPA with the same mask: its forward, and the backward of that one
-    call, which computes dQ, dK and dV together."""
+    ``dtype`` (default bf16; the model's strided views, FA_ROTATE input
+    sets rotated: > 50 MB of L2 between reuses), beside its plain
+    version, its bound, and SDPA with the same mask: its forward, and the
+    backward of that one call, which computes dQ, dK and dV together."""
     import torch.nn.functional as F
+    dtype = dtype or torch.bfloat16
+    elt = torch.finfo(dtype).bits // 8
     B, N, S, H = (shape[x] for x in "BNSH")
     sets = []
     for _ in range(FA_ROTATE):
-        q, k, v, do, b = _fa_inputs(torch, g, B, N, S, S, H, bias,
-                                    torch.bfloat16, "bsnh")
+        q, k, v, do, b = _fa_inputs(torch, g, B, N, S, S, H, bias, dtype,
+                                    "bsnh")
         o, lse = fa.flash_fwd_reference(q, k, v, b)
         sets.append((q, k, v, do, b, lse, fa.flash_dd(o, do)))
     n = len(sets)
@@ -3510,12 +3538,11 @@ def _fa_timing(torch, fa, g, shape, bias):
     for key in ("fwd", "dq", "dkv"):
         t[key] = _graph_ms(torch, kern[key], 2 * n)
         t[key + "_plain"] = _graph_ms(torch, plain[key], 2 * n)
-        bound, by, nbytes, ops = _fa_bound(key, B, N, S, S, H, 2,
+        bound, by, nbytes, ops = _fa_bound(key, B, N, S, S, H, elt,
                                            bias_bytes)
         t.update({key + "_bound": bound, key + "_bound_by": by,
                   key + "_bytes": nbytes, key + "_ops": ops})
-    mask = [None if x[4] is None else x[4].to(torch.bfloat16)
-            for x in sets]
+    mask = [None if x[4] is None else x[4].to(dtype) for x in sets]
     t["sdpa_fwd"] = _graph_ms(
         torch, lambda i: F.scaled_dot_product_attention(
             *sets[i % n][:3], attn_mask=mask[i % n]), 2 * n)
@@ -3533,9 +3560,11 @@ def _fa_timing(torch, fa, g, shape, bias):
         F.scaled_dot_product_attention(*leaves[i % n],
                                        attn_mask=mask[i % n]),
         leaves[i % n], sets[i % n][3]), 2 * n)
-    log("fa_kernels", timing=f"B={B} N={N} S={S} H={H} bf16, "
-        f"{'padding bias (B,1,1,S)' if bias else 'no bias'}, "
-        f"model layout, {n} input sets rotated", ms=t)
+    what = {None: "no bias", "pad": "padding bias (B,1,1,S)",
+            "gpt": "causal bias (1,1,S,S)"}[bias]
+    log("fa_kernels", timing=f"B={B} N={N} S={S} H={H} "
+        f"{str(dtype).split('.')[-1]}, {what}, model layout, {n} input "
+        "sets rotated", ms=t)
     return t
 
 
@@ -3948,7 +3977,7 @@ def _dense_trace(torch, graph, nodes, b1_dtype="bfloat16",
             / replays,
             "device_ms_per_replay": round(busy / replays, 4),
             "b1_ms_per_replay": round(b1_ms / replays, 4),
-            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+            "top_kernels": [{"name": e.key[:90],
                              "ms": round(e.self_device_time_total / 1e3, 4)}
                             for e in top]}
 
@@ -4815,6 +4844,565 @@ def phase_seq2seq_parity(torch, seed):
            "key_bias_atol": kb_atol, "launches_kernels": on[4]}
     log("seq2seq_parity", **out)
     return out
+
+
+# -- phase 9c: bench.py's moe workload (bench.py:1447-1578) -----------------
+
+# bench_moe's chip configuration (bench.py:1471-1472, 1479-1486), nothing
+# cut: a GPT-MoE (vocab 128, hidden 512, 8 layers, 8 heads, seq 128,
+# batch 32, 16 experts, top-2, every other block MoE, capacity factor
+# 1.25, dropout 0) against a dense GPT whose FFN width bench.py's
+# bisection matches to the MoE's parameter count; AdamW(1e-3), f32, one
+# repeated batch of RandomState(0) ids; 2 warm-up steps, then the best of
+# 3 runs of 20 steps.  The routed = dense-control gate at top-k 1 runs 2
+# layers (one MoE block) to save time: the gate is exact, so depth adds
+# no evidence.
+MOE = dict(vocab=128, hidden=512, layers=8, heads=8, seq=128, batch=32,
+           experts=16, top_k=2, moe_every=2, cf=1.25, lr=1e-3, warmup=2,
+           steps=20, reps=3, gate_steps=3, gate_k1_layers=2,
+           parity_steps=2, cpu_layers=2, cpu_batch=4, cpu_steps=3)
+FA_GPT = dict(B=32, N=8, S=128, H=64)
+# kernels on against off, f32, from one init, 2 AdamW steps at lr 1e-3:
+#  * losses within PARITY_LOSS_ATOL (1e-4; B1/B2 agree with their plain
+#    versions to ~1e-6 of an output, FA_RTOL);
+#  * each leaf's two-step change within MOE_CHANGE_RTOL of its norm
+#    (|change on - change off| / |change off|), seq2seq_parity's 1e-3:
+#    Adam's eps turns a gradient difference near 0 into a move of up to
+#    ~dg / eps of a rate, so elements are not held one by one; the key
+#    biases (exact gradient 0) stay with the absolute 2 * lr * steps;
+#  * a routing flip between the two runs is a near tie, or a fault: the
+#    gap between adjacent gate probabilities among the top k + 1 at a
+#    flipped token must be under MOE_TIE_GAP.  Kernels on against off
+#    move a gate probability by ~1e-7 (f32 sums in other orders); 1e-4
+#    is a thousand times that and far under the gaps a wrong kernel
+#    opens.  Losses and parameters are held where routing agrees.
+MOE_CHANGE_RTOL = 1e-3
+MOE_TIE_GAP = 1e-4
+# the card against the port on the CPU (TF32 off), Wide&Deep's limits:
+# losses rtol 1e-4, each parameter's change within 1e-3 of the CPU's in
+# norm
+MOE_CPU_LOSS_RTOL = 1e-4
+MOE_CPU_CHANGE_RTOL = 1e-3
+
+
+def _gpt_moe_model(torch, seed, k=None, layers=None, cf=None,
+                   dispatch="routed", mesh=None, device="cuda"):
+    """bench.py's moe_model(cf) on the port: random GPT-2 weights from
+    ``seed``."""
+    from paddle_tpu_torch.text.models import GPTMoEConfig, GPTMoEModel
+    c = MOE
+    cfg = GPTMoEConfig.tiny(
+        vocab_size=c["vocab"], hidden_size=c["hidden"],
+        layers=layers or c["layers"], heads=c["heads"], seq=c["seq"],
+        experts=c["experts"], top_k=k or c["top_k"],
+        capacity_factor=cf or c["cf"], moe_every=c["moe_every"])
+    cfg.dropout = 0.0
+    m = GPTMoEModel(cfg, mesh=mesh, dispatch=dispatch, device=device)
+    return m.init_weights(torch.Generator(device=device).manual_seed(seed))
+
+
+def _gpt_dense_cfg(inter, layers=None):
+    from paddle_tpu_torch.text.models import GPTConfig
+    c = MOE
+    cfg = GPTConfig.tiny(vocab_size=c["vocab"], hidden_size=c["hidden"],
+                         layers=layers or c["layers"], heads=c["heads"],
+                         seq=c["seq"])
+    cfg.intermediate_size = inter
+    cfg.dropout = 0.0
+    return cfg
+
+
+def _gpt_param_count(cfg):
+    """GPTModel's parameter count, without building it: the token and
+    position tables, each block's attention (4 projections with bias),
+    FFN and two LayerNorms, and the final LayerNorm."""
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    block = 4 * (D * D + D) + (D * I + I) + (I * D + D) + 4 * D
+    return (cfg.vocab_size + cfg.max_position_embeddings) * D \
+        + cfg.num_layers * block + 2 * D
+
+
+def _matched_dense_cfg(n_moe):
+    """bench.py's bisection of the dense FFN width whose parameter count
+    matches the MoE model's (bench.py:1493-1505)."""
+    c = MOE
+    lo, hi = 4 * c["hidden"], 4 * c["hidden"] * c["experts"]
+    while hi - lo > max(8, c["hidden"] // 8):
+        mid = (lo + hi) // 2
+        n = _gpt_param_count(_gpt_dense_cfg(mid))
+        lo, hi = (mid, hi) if n < n_moe else (lo, mid)
+    return _gpt_dense_cfg(hi)
+
+
+def _gpt_dense_model(torch, cfg, seed, device="cuda"):
+    from paddle_tpu_torch.text.models import GPTModel
+    m = GPTModel(cfg, device=device)
+    return m.init_weights(torch.Generator(device=device).manual_seed(seed))
+
+
+@contextlib.contextmanager
+def _no_new_builds(torch):
+    """Counts nvcc builds and CUDA graph captures begun inside the
+    block."""
+    from paddle_tpu_torch.ops.kernels import _build
+    seen = {"builds": 0, "captures": 0}
+    build, begin = _build.build, torch.cuda.CUDAGraph.capture_begin
+
+    def counted_build(*a, **kw):
+        seen["builds"] += 1
+        return build(*a, **kw)
+
+    def counted_begin(self, *a, **kw):
+        seen["captures"] += 1
+        return begin(self, *a, **kw)
+    _build.build = counted_build
+    torch.cuda.CUDAGraph.capture_begin = counted_begin
+    try:
+        yield seen
+    finally:
+        _build.build = build
+        torch.cuda.CUDAGraph.capture_begin = begin
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Records each MoE forward's gate probabilities, expert ids and
+    kept slots, in call order."""
+    from paddle_tpu_torch.nn.layer import moe
+    from paddle_tpu_torch.ops import routing
+    calls = []
+    gate, plan = moe.gate_from_logits, routing.expert_dispatch_plan
+
+    def logged_gate(logits, k):
+        out = gate(logits, k)
+        calls.append({"probs": out[0].detach(), "eids": out[1]})
+        return out
+
+    def logged_plan(*a, **kw):
+        out = plan(*a, **kw)
+        calls[-1]["pos"] = out.pos
+        return out
+    moe.gate_from_logits = logged_gate
+    routing.expert_dispatch_plan = logged_plan
+    try:
+        yield calls
+    finally:
+        moe.gate_from_logits = gate
+        routing.expert_dispatch_plan = plan
+
+
+def _route_flips(torch, got, ref):
+    """Tokens whose expert ids differ between two routing logs of the
+    same calls, each with the gap its flip crossed: at each rank where
+    the ids differ, the reference run's probability of the expert it
+    chose there less its probability of the expert the other run chose
+    there, the largest over those ranks (ranks 1 and 2 swapped cross the
+    gap between them, however close rank 3 is); and the count of kept
+    slots that differ."""
+    flips, slots = [], 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        diff = a["eids"] != b["eids"]
+        rows = diff.any(-1).nonzero().flatten()
+        p = b["probs"]
+        crossed = (p.gather(1, b["eids"].long())
+                   - p.gather(1, a["eids"].long())).abs()
+        gaps = crossed.masked_fill(~diff, 0.0).max(-1)[0]
+        flips += [{"call": i, "token": int(r), "gap": float(gaps[r])}
+                  for r in rows.tolist()]
+        slots += int((a["pos"] != b["pos"]).sum())
+    return flips, slots
+
+
+def _param_change_errs(after, ref_after, before):
+    """|change - reference change| / |reference change| in norm, each
+    parameter (f64 on the host)."""
+    return {n: _wd_change_err(after[n].detach().double().cpu().numpy(),
+                              ref_after[n].detach().double().cpu().numpy(),
+                              before[n].double().cpu().numpy())
+            for n in before}
+
+
+def _moe_step_trace(torch, step, ids, step_ms):
+    """One traced training step: device busy time by kind (the GEMMs,
+    routing's sorts, scatters and gathers, B1/B2, the optimizer's foreach
+    passes, the rest) and the idle share against the untraced step.  It
+    counts no kernels: CUPTI drops records, so a trace is not a count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step((ids, ids.copy()))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        return {"device_busy_ms": "not measured (no CUDA events)"}
+
+    def kind(name):
+        low = name.lower()
+        if any(s in name for s in ("fwd_tf32_kernel", "dq_kernel",
+                                   "dkv_kernel")):
+            return "flash_attention"
+        if any(s in low for s in ("gemm", "cutlass", "xmma", "gemv")):
+            return "gemm"
+        if any(s in low for s in ("foreach", "multi_tensor")):
+            return "optimizer"
+        if any(s in low for s in ("sort", "scatter", "gather", "index",
+                                  "searchsorted", "radix")):
+            return "routing"
+        return "other"
+    by = {}
+    for e in kernels:
+        k = kind(e.key)
+        by[k] = by.get(k, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {"device_busy_ms": round(busy, 4),
+            "device_idle_share": round(1 - busy / step_ms, 4),
+            "busy_ms_by_kind": {k: round(v, 4) for k, v in
+                                sorted(by.items(), key=lambda x: -x[1])},
+            "top_kernels": [{"name": e.key[:90],
+                             "ms": round(e.self_device_time_total / 1e3, 4)}
+                            for e in top]}
+
+
+def _moe_timed(torch, model, ids, mesh, seed):
+    """bench.py's timed_step: AdamW(1e-3), 2 warm-up steps, then the best
+    of 3 runs of 20 steps fenced by synchronize(); the launches of B1/B2
+    in those 62 steps, counted from 0; no nvcc build and no CUDA graph
+    capture in the timed runs."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    c = MOE
+    step = TrainStep(model, AdamW(learning_rate=c["lr"]), mesh=mesh,
+                     seed=seed)
+    _fa_counts(fa, reset=True)          # the path's run: counts from 0
+    losses = [step((ids, ids.copy())) for _ in range(c["warmup"])]
+    best = float("inf")
+    with _no_new_builds(torch) as built:
+        for _ in range(c["reps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(c["steps"]):
+                losses.append(step((ids, ids.copy())))
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / c["steps"])
+    launches = _fa_counts(fa)
+    losses = [float(x) for x in losses]
+    n = c["warmup"] + c["reps"] * c["steps"]
+    check(all(np.isfinite(losses)), f"moe: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"moe: loss did not descend {losses}")
+    check(all(v == model.config.num_layers * n for v in launches.values()),
+          f"moe: launches {launches}, want {model.config.num_layers} "
+          f"layers x {n} steps each")
+    check(built == {"builds": 0, "captures": 0},
+          f"moe: the timed window built or captured: {built}")
+    return best, step, {"losses_first_last": [losses[0], losses[-1]],
+                        "launches": launches, "steps": n,
+                        "built_in_timed_window": built}
+
+
+def _moe_control(torch, seed, ids, k, layers):
+    """The routed model and its dense-dispatch control from one init:
+    ``gate_steps`` TrainSteps each; losses and parameters bit-equal."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    runs = []
+    for dispatch in ("routed", "dense"):
+        m = _gpt_moe_model(torch, seed, k=k, layers=layers,
+                           dispatch=dispatch)
+        step = TrainStep(m, AdamW(learning_rate=MOE["lr"]))
+        losses = [step((ids, ids)).item() for _ in range(MOE["gate_steps"])]
+        runs.append((losses, {n: p.detach().clone()
+                              for n, p in m.named_parameters()}))
+        del m, step
+    (lr, pr), (ld, pd) = runs
+    same = [n for n in pr if torch.equal(pr[n], pd[n])]
+    check(lr == ld and len(same) == len(pr),
+          f"moe: routed != dense control at top-k {k}: losses {lr} vs "
+          f"{ld}, {len(pr) - len(same)} parameters differ")
+    return {"top_k": k, "layers": layers, "steps": MOE["gate_steps"],
+            "losses": lr, "parameters_bit_equal": len(same)}
+
+
+def _moe_kernel_parity(torch, build, ids):
+    """Kernels on against off (FLAGS_use_pallas_kernels), f32, from one
+    init: 2 AdamW steps each; the routing logs of both runs compared
+    first.  The steps before the first one whose routing differs are
+    held (their losses, and every leaf's change after the last of them);
+    a flip's own gap must be a near tie.  Flips in later steps are only
+    reported: their gates already read parameters the first flip moved.
+    Returns the readings; raises on a check."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    n_steps = MOE["parity_steps"]
+    runs, snap, init = {}, flags.flags_snapshot(), None
+    try:
+        for on in (False, True):
+            flags.set_flags({"FLAGS_use_pallas_kernels": on})
+            m = build()
+            if init is None:
+                init = {n: p.detach().clone()
+                        for n, p in m.named_parameters()}
+            step = TrainStep(m, AdamW(learning_rate=MOE["lr"]))
+            losses, after = [], []
+            with _routing_log() as calls:
+                for _ in range(n_steps):
+                    losses.append(step((ids, ids)).item())
+                    after.append({n: p.detach().clone()
+                                  for n, p in m.named_parameters()})
+            runs[on] = (losses, after, calls)
+            del m, step
+    finally:
+        flags.flags_restore(snap)
+    (lon, pon, con), (loff, poff, coff) = runs[True], runs[False]
+    flips, slots = _route_flips(torch, con, coff)
+    per_step = max(1, len(coff) // n_steps)
+    first = min([f["call"] // per_step for f in flips], default=n_steps)
+    worst_gap = max([f["gap"] for f in flips
+                     if f["call"] // per_step == first], default=0.0)
+    check(worst_gap <= MOE_TIE_GAP,
+          f"moe parity: a routing flip in step {first} at gate gap "
+          f"{worst_gap} (> {MOE_TIE_GAP}): {flips[:8]}")
+    held = list(range(first))
+    loss_err = [abs(a - b) for a, b in zip(lon, loff)]
+    check(all(np.isfinite(lon)) and all(loss_err[s] <= PARITY_LOSS_ATOL
+                                        for s in held),
+          f"moe parity: losses {lon} vs {loff}")
+    out = {"losses_kernels": lon, "losses_plain": loff,
+           "loss_abs_diff": loss_err, "steps_held": held,
+           "routing_calls": len(coff), "flips": flips[:16],
+           "n_flips": len(flips), "first_flip_step": first
+           if flips else None, "kept_slots_differing": slots,
+           "limits": {"loss_atol": PARITY_LOSS_ATOL,
+                      "change_rtol": MOE_CHANGE_RTOL,
+                      "tie_gap": MOE_TIE_GAP}}
+    if not held:
+        out["params_held_after_step"] = None
+        return out
+    s = held[-1]
+    kb_atol = 2 * MOE["lr"] * (s + 1)   # AdamW moves a leaf <= lr a step
+    out["limits"]["key_bias_atol"] = kb_atol
+    change = _param_change_errs(pon[s], poff[s], init)
+    key_bias = {n: (pon[s][n] - poff[s][n]).abs().max().item()
+                for n in pon[s] if n.endswith("k_proj.bias")}
+    rest = {n: e for n, e in change.items() if n not in key_bias}
+    worst = max(rest, key=rest.get)
+    check(rest[worst] <= MOE_CHANGE_RTOL,
+          f"moe parity: {worst}'s change after step {s} differs by "
+          f"{rest[worst]} of its norm")
+    check(max(key_bias.values()) <= kb_atol,
+          f"moe parity: a key bias differs by {max(key_bias.values())}")
+    out.update(params_held_after_step=s, change_rel_norm_diff=rest[worst],
+               change_worst=worst,
+               key_bias_max_abs_diff=max(key_bias.values()))
+    return out
+
+
+def _moe_against_cpu(torch, seed, dense_cfg):
+    """The card against the port on the CPU, TF32 off: the dense GPT at
+    2 layers, full width, batch 4, 3 AdamW steps (losses, each
+    parameter's change); the MoE model at 2 layers, one forward (step
+    1's expert ids, flips only at near ties)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    c = MOE
+    ids = np.random.RandomState(seed + 3).randint(
+        0, c["vocab"], (c["cpu_batch"], c["seq"]))
+    cfg = _gpt_dense_cfg(dense_cfg.intermediate_size, c["cpu_layers"])
+    runs = {}
+    for on_card in (False, True):
+        m = _gpt_dense_model(torch, cfg, seed, device="cpu")
+        if on_card:
+            card = _gpt_dense_model(torch, cfg, seed)
+            card.load_state_dict(m.state_dict())
+            m = card
+        before = {n: p.detach().clone().cpu()
+                  for n, p in m.named_parameters()}
+        step = TrainStep(m, AdamW(learning_rate=c["lr"]),
+                         device=m.wte.weight.device)
+        losses = [step((ids, ids)).item() for _ in range(c["cpu_steps"])]
+        runs[on_card] = (losses, {n: p.detach().cpu()
+                                  for n, p in m.named_parameters()})
+    (l_cpu, p_cpu), (l_card, p_card) = runs[False], runs[True]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    change = _param_change_errs(p_card, p_cpu, before)
+    kb = [n for n in change if n.endswith("k_proj.bias")]
+    rest = {n: e for n, e in change.items() if n not in kb}
+    worst = max(rest, key=rest.get)
+    kb_err = max((p_card[n] - p_cpu[n]).abs().max().item() for n in kb)
+    check(loss_err <= MOE_CPU_LOSS_RTOL,
+          f"moe card vs cpu: losses {l_card} vs {l_cpu}")
+    check(rest[worst] <= MOE_CPU_CHANGE_RTOL,
+          f"moe card vs cpu: {worst}'s change differs by {rest[worst]}")
+    check(kb_err <= 2 * c["lr"] * c["cpu_steps"],
+          f"moe card vs cpu: a key bias differs by {kb_err}")
+    logs = {}
+    for on_card in (False, True):
+        m = _gpt_moe_model(torch, seed, layers=c["cpu_layers"], device="cpu")
+        if on_card:
+            card = _gpt_moe_model(torch, seed, layers=c["cpu_layers"])
+            card.load_state_dict(m.state_dict())
+            m = card
+        with _routing_log() as calls, torch.no_grad():
+            m(torch.as_tensor(ids, device=m.wte.weight.device))
+        logs[on_card] = [{k: v.cpu() for k, v in call.items()}
+                         for call in calls]
+    flips, slots = _route_flips(torch, logs[True], logs[False])
+    worst_gap = max([f["gap"] for f in flips], default=0.0)
+    check(worst_gap <= MOE_TIE_GAP,
+          f"moe card vs cpu: a routing flip at gate gap {worst_gap}: "
+          f"{flips[:8]}")
+    return {"dense_layers": c["cpu_layers"], "batch": c["cpu_batch"],
+            "steps": c["cpu_steps"], "losses_card": l_card,
+            "losses_cpu": l_cpu, "loss_rel_err": loss_err,
+            "change_rel_err_worst": rest[worst], "change_worst": worst,
+            "key_bias_max_abs_diff": kb_err,
+            "moe_step1_flips": flips[:16], "moe_step1_n_flips": len(flips),
+            "moe_step1_kept_slots_differing": slots,
+            "limits": {"loss_rtol": MOE_CPU_LOSS_RTOL,
+                       "change_rtol": MOE_CPU_CHANGE_RTOL,
+                       "tie_gap": MOE_TIE_GAP}}
+
+
+def _moe_capacity(torch, seed, ids, mesh):
+    """bench.py's capacity block: an eval forward at capacity factors 1.0
+    and 1.25 from the same init, its drops, load ratios and aux loss
+    through publish_moe_metrics."""
+    from paddle_tpu_torch.nn.layer.moe import moe_layers, publish_moe_metrics
+    c = MOE
+    tokens = c["batch"] * c["seq"]
+    n_blocks = c["layers"] // c["moe_every"]
+    out = {}
+    for cf in (1.0, 1.25):
+        m = _gpt_moe_model(torch, seed, cf=cf, mesh=mesh).eval()
+        with torch.no_grad():
+            m(torch.as_tensor(ids, device="cuda"))
+        dropped, loads = publish_moe_metrics(m, model=f"bench_cf{cf}")
+        aux = float(m.moe_aux_loss())
+        sums = [sum(loads[i:i + c["experts"]])
+                for i in range(0, len(loads), c["experts"])]
+        check(len(moe_layers(m)) == n_blocks and aux >= 1.0 - 1e-5,
+              f"moe capacity cf {cf}: aux {aux} below its minimum 1")
+        check(len(sums) == n_blocks
+              and all(abs(s - c["experts"]) <= 1e-3 for s in sums),
+              f"moe capacity cf {cf}: load ratios sum to {sums}, want "
+              f"{c['experts']} a layer")
+        out[f"cf_{cf}"] = {
+            "drop_fraction": round(dropped / max(1, tokens * c["top_k"]
+                                                 * n_blocks), 4),
+            "max_expert_load_ratio": round(max(loads), 3),
+            "aux_loss": round(aux, 4), "dropped": dropped,
+            "capacity": moe_layers(m)[0].capacity_for(tokens)}
+        del m
+    return out
+
+
+def phase_moe(torch, seed, card):
+    """bench.py's moe workload (see MOE) on the card, f32 with TF32 off:
+    B1/B2 at its attention shape against their plain versions and timed;
+    the timed MoE and dense training; one traced MoE step; the routed =
+    dense-control gate; kernels on against off; the card against the CPU;
+    the capacity block and the all-to-all census.  Returns (the phase's
+    record, B1/B2's worst errors and timings at the GPT shape, the
+    launches of the timed runs)."""
+    from paddle_tpu_torch.nn.layer.moe import moe_layers
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import make_mesh
+    c = MOE
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          "moe: TF32 is on; the phase holds f32 (routed = dense control "
+          "needs exact f32 products)")
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    B, N, S, H = (FA_GPT[x] for x in "BNSH")
+    where = f"B={B} N={N} S={S} H={H} bias=gpt (1,1,S,S) layout=bsnh"
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    inputs = _fa_inputs(torch, g, B, N, S, S, H, "gpt", torch.float32,
+                        "bsnh")
+    _fa_compare(torch, fa, inputs, False, where, worst)
+    _fa_repeat(torch, fa, inputs, f"{where} float32")
+    del inputs
+    t = _fa_timing(torch, fa, g, FA_GPT, "gpt", torch.float32)
+    log("moe", check=where, dtype="float32", repeats_bit_for_bit=True,
+        max_abs_err=worst, rtol=FA_RTOL["float32"])
+    lap("kernels")
+    mesh = make_mesh({"ep": torch.cuda.device_count()})
+    ids = np.random.RandomState(0).randint(0, c["vocab"],
+                                           (c["batch"], c["seq"]))
+    model = _gpt_moe_model(torch, seed, mesh=mesh)
+    n_moe = sum(p.numel() for p in model.parameters())
+    dense_cfg = _matched_dense_cfg(n_moe)
+    moe_s, moe_step, moe_run = _moe_timed(torch, model, ids, mesh, seed)
+    trace = _moe_step_trace(torch, moe_step, ids, moe_s * 1e3)
+    census = {"count_per_step": 0, "wire_bytes_per_dev": sum(
+        m.wire_bytes(c["batch"] * c["seq"]) for m in moe_layers(model))}
+    check(census["wire_bytes_per_dev"] == 0, f"moe: census {census}")
+    del model, moe_step
+    torch.cuda.empty_cache()
+    lap("moe_timed")
+    dense = _gpt_dense_model(torch, dense_cfg, seed)
+    n_dense = sum(p.numel() for p in dense.parameters())
+    check(n_dense == _gpt_param_count(dense_cfg),
+          f"moe: the dense model has {n_dense} parameters, the count says "
+          f"{_gpt_param_count(dense_cfg)}")
+    dense_s, _, dense_run = _moe_timed(torch, dense, ids, mesh, seed)
+    del dense
+    torch.cuda.empty_cache()
+    lap("dense_timed")
+    tokens = c["batch"] * c["seq"]
+    tok_moe, tok_dense = tokens / moe_s, tokens / dense_s
+    gate = [_moe_control(torch, seed, ids, 2, c["layers"]),
+            _moe_control(torch, seed, ids, 1, c["gate_k1_layers"])]
+    torch.cuda.empty_cache()
+    lap("control")
+    parity = {
+        "dense": _moe_kernel_parity(
+            torch, lambda: _gpt_dense_model(torch, dense_cfg, seed), ids),
+        "moe": _moe_kernel_parity(
+            torch, lambda: _gpt_moe_model(torch, seed), ids)}
+    torch.cuda.empty_cache()
+    lap("kernel_parity")
+    against_cpu = _moe_against_cpu(torch, seed, dense_cfg)
+    lap("against_cpu")
+    capacity = _moe_capacity(torch, seed, ids, mesh)
+    torch.cuda.empty_cache()
+    lap("capacity")
+    launches = {k: moe_run["launches"][k] + dense_run["launches"][k]
+                for k in moe_run["launches"]}
+    out = {"config": "bench_moe chip (bench.py:1471-1472, 1479-1486)",
+           "card": card, "mesh": mesh.shape,
+           "value": round(tok_moe / tok_dense, 3),
+           "unit": "x dense step throughput at matched params",
+           "params": {"moe": n_moe, "dense_matched": n_dense,
+                      "dense_intermediate": dense_cfg.intermediate_size,
+                      "experts": c["experts"], "top_k": c["top_k"]},
+           "step_s": {"moe": moe_s, "dense": dense_s},
+           "tok_per_s": {"moe": round(tok_moe, 1),
+                         "dense": round(tok_dense, 1)},
+           "runs": {"moe": moe_run, "dense": dense_run},
+           "b1_b2_launches_per_step": c["layers"],
+           "moe_step_trace": trace,
+           "a2a_census": dict(census, note=(
+               "the layers' own wire_bytes model: one card moves nothing; "
+               "the JAX number is an HLO census of the compiled step, and "
+               "the port has no compiled program to count")),
+           "capacity": capacity, "routed_equals_dense_control": gate,
+           "cut": "the top-k 1 control runs 2 layers (one MoE block)",
+           "kernels_on_vs_off": parity, "card_vs_cpu": against_cpu,
+           "laps_s": laps}
+    log("moe", **out)
+    return out, worst, t, launches
 
 
 # -- phase 10: batch invariance probe ----------------------------------------
@@ -6372,6 +6960,10 @@ def main(argv=None):
     _at("seq2seq_parity")
     phase_seq2seq_parity(torch, args.seed)
     torch.cuda.empty_cache()
+    _at("moe")
+    _, gpt_worst, gpt_t, gpt_launches = phase_moe(torch, args.seed,
+                                                  env["nvidia_smi"])
+    torch.cuda.empty_cache()
     _at("fused_kernels")
     fused_worst, fused_t = phase_fused_kernels(torch, args.seed)
     torch.cuda.empty_cache()
@@ -6453,6 +7045,19 @@ def main(argv=None):
          "plain_ms": s2s_t[k + "_plain"], "bound_ms": s2s_t[k + "_bound"],
          "bound_by": s2s_t[k + "_bound_by"],
          "library_ms": s2s_t["sdpa_fwd" if k == "fwd" else "sdpa_bwd"]}
+        for k, line in (("fwd", 67), ("dq", 192), ("dkv", 232))]
+    # the moe workload's GPT training path: launches of the phase's timed
+    # runs (the MoE and the dense model, 8 a step each), timed at its
+    # shape (B=32, N=8, S=128, H=64, f32, the (1,1,S,S) causal bias)
+    fa_kernels += [
+        {"name": f"flash_attention_{k}_gpt_f32", "route": "cuda",
+         "source": fa_src,
+         "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+         "launches": gpt_launches[f"flash_attention_{k}"],
+         "max_abs_err": gpt_worst[k], "ms": gpt_t[k],
+         "plain_ms": gpt_t[k + "_plain"], "bound_ms": gpt_t[k + "_bound"],
+         "bound_by": gpt_t[k + "_bound_by"],
+         "library_ms": gpt_t["sdpa_fwd" if k == "fwd" else "sdpa_bwd"]}
         for k, line in (("fwd", 67), ("dq", 192), ("dkv", 232))]
     src = "paddle_tpu_torch/csrc/flash_decode.cu"
     gen_b8 = spec["generate"]

@@ -16,7 +16,11 @@ port's model is frozen first with the settings of the JAX one (per
 channel or per tensor, dynamic, a folded out-scale), so that both hold
 the same sites; the bridge then overwrites their codes and scales, and
 a per-channel site meeting a per-tensor one fails on the scales'
-shapes.  A tied parameter (BERT's MLM decoder weight is the word embedding)
+shapes.  A GPT-MoE model carries across the same way: each MoE layer's
+gate is a ``Linear`` (transposed), its stacked expert arrays
+(``experts.w1`` [E, D, H] ...) copy as they are, and its drop and load
+buffers are buffers of the same names.  A tied parameter (BERT's MLM
+decoder weight is the word embedding)
 appears once in ``layer_state``, under its first name, as it does in
 ``named_parameters()``; its other names are skipped here.
 

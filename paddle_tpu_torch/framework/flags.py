@@ -297,3 +297,29 @@ define_flag("sharded_embedding",
             "axis with an all-to-all lookup.  Not ported (ROADMAP A12: it "
             "needs torch.distributed and four cards): WideDeepTrainer "
             "raises while this is on.  Seeded by PADDLE_TPU_SHARDED_EMB.")
+
+# ---- Mixture-of-Experts (nn/layer/moe.py) -----------------------------------
+define_flag("moe_capacity_factor",
+            float(os.environ.get("PADDLE_TPU_MOE_CAPACITY_FACTOR", "1.25")
+                  or 1.25),
+            "Default capacity factor of MoE token dispatch: each routing "
+            "group may park at most ceil(cf * tokens * top_k / E) "
+            "assignments on one expert; overflow assignments drop (the "
+            "token keeps its residual) and are counted in the "
+            "moe_tokens_dropped_total metric.  Only consulted when a "
+            "MoELayer/GPTMoEConfig leaves capacity_factor unset.  Seeded "
+            "by PADDLE_TPU_MOE_CAPACITY_FACTOR.",
+            validator=lambda v: float(v) > 0)
+define_flag("moe_top_k", 2,
+            "Default top-k of MoE softmax gating (k=2 renormalizes the "
+            "chosen pair, k=1 is the Switch rule).  Only consulted when a "
+            "MoELayer/GPTMoEConfig leaves top_k unset.",
+            validator=lambda v: int(v) in (1, 2))
+define_flag("moe_axis",
+            os.environ.get("PADDLE_TPU_MOE_AXIS", "ep") or "ep",
+            "Mesh axis MoE expert stacks shard over and token rows route "
+            "across.  A mesh without the axis, or with it at size 1, runs "
+            "the local dispatch on one device; a larger axis needs the "
+            "all-to-all, which is not ported (ROADMAP A11).  Seeded by "
+            "PADDLE_TPU_MOE_AXIS.",
+            validator=lambda v: str(v) in ("ep", "dp", "mp", "pp", "sp"))

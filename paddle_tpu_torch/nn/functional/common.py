@@ -32,16 +32,38 @@ def linear(x, weight, bias=None, name=None):
     return _linear(x, weight) if bias is None else _linear(x, weight, bias)
 
 
+class _OrderedLookup(torch.autograd.Function):
+    """Row lookup whose table gradient adds each id's rows in one fixed
+    order (``index_put_`` with ``accumulate=True``, which CUDA runs as a
+    sort and a segment sum).  CUDA's embedding backward adds them with
+    atomics, in an order that changes from run to run, so two identical
+    training steps would differ in the last bits of the table."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x)
+        ctx.rows = weight.shape
+        return torch.nn.functional.embedding(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        gw = g.new_zeros(ctx.rows).index_put_(
+            (x.reshape(-1),), g.reshape(-1, g.shape[-1]), accumulate=True)
+        return None, gw
+
+
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` looked up by the ids ``x``; an id equal to
     ``padding_idx`` (a negative one counts from the end) looks up zeros
     and passes no gradient to its row, as JAX's ``_embedding_fn``
-    masks it."""
+    masks it.  The table's gradient is the same bits on every run
+    (``_OrderedLookup``)."""
     if sparse:
         raise UnimplementedError(
             "embedding(sparse=True) is not ported: its gradient would be a "
             "SelectedRows (ROADMAP A5)")
-    out = torch.nn.functional.embedding(x, weight)
+    out = _OrderedLookup.apply(x, weight)
     if padding_idx is None:
         return out
     pi = int(padding_idx)

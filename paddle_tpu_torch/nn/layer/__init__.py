@@ -11,3 +11,4 @@ from .transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
     dequantize_kv_rows, quantize_kv_rows, ring_block_write)
+from .moe import ExpertFFN, MoEEncoderLayer, MoELayer  # noqa: F401

@@ -6,8 +6,9 @@ weights, zero bias) and subclass ``torch.nn.Linear``/``Embedding``, so
 ``framework/bridge.py`` transposes a ``Linear`` weight (torch stores it
 [out, in], Paddle [in, out]) and copies an ``Embedding`` table as it
 is.  Both land on CUDA unless the caller passes ``device="cpu"``.
-Parameter attributes (``weight_attr``/``bias_attr``) and sparse
-embedding gradients are not ported.
+Parameter attributes (``weight_attr``/``bias_attr``, apart from
+``Linear(bias_attr=False)``) and sparse embedding gradients are not
+ported.
 
 All three are ``Layer``s (``isinstance(layer, nn.Layer)`` holds, as in
 the JAX package): ``Linear(nn.Linear, Layer)`` takes torch's storage and
@@ -37,19 +38,22 @@ def no_param_attrs(layer, **attrs):
 
 
 class Linear(nn.Linear, Layer):
-    """``y = x W^T + b`` with ``W`` [out_features, in_features]."""
+    """``y = x W^T + b`` with ``W`` [out_features, in_features];
+    ``bias_attr=False`` gives no bias."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, device: DeviceLike = None,
                  dtype=None):
         no_param_attrs("Linear", weight_attr=weight_attr,
-                       bias_attr=bias_attr)
+                       bias_attr=None if bias_attr is False else bias_attr)
         super().__init__(in_features, out_features,
+                         bias=bias_attr is not False,
                          device=resolve_device(device), dtype=dtype)
 
     def reset_parameters(self):
         nn.init.xavier_uniform_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
 
 class Embedding(nn.Embedding, Layer):

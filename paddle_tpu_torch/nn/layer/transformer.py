@@ -310,12 +310,25 @@ def _fresh_clone(layer):
 
 
 class TransformerEncoder(nn.Module):
-    def __init__(self, encoder_layer, num_layers, norm=None):
+    """``num_layers`` copies of ``encoder_layer`` (the first is the layer
+    itself, the others fresh clones), or, when ``encoder_layer`` is a
+    list or tuple, those built blocks as they are (a heterogeneous stack
+    such as GPTMoEModel's dense and MoE blocks; ``num_layers``, if
+    given, must equal its length)."""
+
+    def __init__(self, encoder_layer, num_layers=None, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList(
-            [encoder_layer if i == 0 else _fresh_clone(encoder_layer)
-             for i in range(num_layers)])
-        self.num_layers = num_layers
+        if isinstance(encoder_layer, (list, tuple)):
+            layers = list(encoder_layer)
+            if num_layers is not None and int(num_layers) != len(layers):
+                raise ValueError(
+                    f"TransformerEncoder got {len(layers)} layers but "
+                    f"num_layers={num_layers}")
+        else:
+            layers = [encoder_layer if i == 0 else _fresh_clone(encoder_layer)
+                      for i in range(num_layers)]
+        self.layers = nn.ModuleList(layers)
+        self.num_layers = len(layers)
         self.norm = norm
 
     def forward(self, src, src_mask=None, cache=None, cache_position=None,

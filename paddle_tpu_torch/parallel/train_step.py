@@ -26,8 +26,10 @@ once per forward (once per step without accumulation).  The options:
   (seed, t), the same for every microbatch of the step, so two
   TrainSteps with one seed draw the same masks.
 
-Not in this slice: ``mesh``, ``zero``, ``localsgd``, ``dgc``, pipeline
-layers and ``remat`` raise :class:`UnimplementedError`.
+``mesh`` may be a one-device :class:`~.mesh.Mesh` (every axis of size
+1, as ``make_mesh`` builds on one card) whose device is the step's; any
+other mesh raises :class:`UnimplementedError` (ROADMAP A12), as do
+``zero``, ``localsgd``, ``dgc``, pipeline layers and ``remat``.
 """
 from __future__ import annotations
 
@@ -38,10 +40,11 @@ from ..framework.enforce import InvalidArgumentError, UnimplementedError
 from ..framework.flags import flag
 from ..framework.place import DeviceLike, module_device, resolve_device
 from ..framework.random import use_generator
+from .mesh import Mesh, single_device
 
 # the values under which each option of later slices is off
-_NOT_PORTED = {"mesh": (None,), "remat": (False,), "zero": (0,),
-               "localsgd_k": (0, 1), "dgc_sparsity": (0.0,)}
+_NOT_PORTED = {"remat": (False,), "zero": (0,), "localsgd_k": (0, 1),
+               "dgc_sparsity": (0.0,)}
 
 
 class TrainStep:
@@ -56,8 +59,8 @@ class TrainStep:
                  compute_dtype=None, localsgd_k: int = 0,
                  dgc_sparsity: float = 0.0, sentinel: bool = None,
                  grad_scaler=None, device: DeviceLike = None):
-        given = dict(mesh=mesh, remat=remat, zero=zero,
-                     localsgd_k=localsgd_k, dgc_sparsity=dgc_sparsity)
+        given = dict(remat=remat, zero=zero, localsgd_k=localsgd_k,
+                     dgc_sparsity=dgc_sparsity)
         for name, off in _NOT_PORTED.items():
             if given[name] not in off:
                 raise UnimplementedError(
@@ -67,6 +70,14 @@ class TrainStep:
         if int(accumulate_steps) < 1:
             raise InvalidArgumentError("accumulate_steps must be >= 1")
         self.device = resolve_device(device)
+        if mesh is not None and not (isinstance(mesh, Mesh)
+                                     and single_device(mesh) == self.device):
+            raise UnimplementedError(
+                f"TrainStep(mesh={mesh!r}) is not ported yet: this slice "
+                "trains on one device and takes only a one-device mesh of "
+                f"the step's device ({self.device}); a mesh over more "
+                "devices is ROADMAP A12, a later slice")
+        self.mesh = mesh
         on = module_device(layer)
         if on is not None and on != self.device:
             raise InvalidArgumentError(

@@ -1,1 +1,3 @@
-from .metrics import LatencyWindow, RateMeter  # noqa: F401
+from .metrics import (Counter, Gauge, Histogram,  # noqa: F401
+                      LatencyWindow, MetricsRegistry, RateMeter,
+                      default_registry)

@@ -1,20 +1,23 @@
 """GPT-style decoder-only LM (causal transformer).
 
-Counterpart of ``paddle_tpu/text/models/gpt.py`` (``GPTConfig`` and
-``GPTModel``).  The default config is GPT-2 small.  ``forward_cached``
-is the incremental step over the static-shape KV ring cache that
-``text.generation`` drives.
+Counterpart of ``paddle_tpu/text/models/gpt.py`` (``GPTConfig``,
+``GPTModel``, ``GPTMoEConfig`` and ``GPTMoEModel``; tensor parallelism,
+``apply_tensor_parallel``, is not ported: ROADMAP A6, A13).  The default
+config is GPT-2 small.  ``forward_cached`` is the incremental step over
+the static-shape KV ring cache that ``text.generation`` drives.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...framework.place import DeviceLike, resolve_device
-from ...nn.functional.common import batch_invariant_linear
+from ...nn.functional.common import (batch_invariant_linear,
+                                      embedding)
 from ...nn.functional.loss import cross_entropy
 from ...nn.layer.common import Dropout
 from ...nn.layer.transformer import (TransformerEncoder,
@@ -52,6 +55,18 @@ class GPTModel(nn.Module):
         super().__init__()
         cfg = cfg or GPTConfig(**kwargs)
         fk = dict(device=resolve_device(device), dtype=dtype)
+        self._init_embeddings(cfg, fk)
+        layer = TransformerEncoderLayer(
+            cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+            dropout=cfg.dropout, activation="gelu", normalize_before=True,
+            **fk)
+        self.encoder = TransformerEncoder(
+            layer, cfg.num_layers,
+            norm=nn.LayerNorm(cfg.hidden_size, eps=1e-5, **fk))
+
+    def _init_embeddings(self, cfg, fk):
+        """The config, the token and position tables, the tied head and
+        the embedding dropout, shared by every GPT variant."""
         self.config = cfg
         # The tied LM head reads the embedding through a zero-padded
         # block of rows (a multiple of 128) that shares its storage.  At
@@ -71,13 +86,6 @@ class GPTModel(nn.Module):
         self.wpe = nn.Embedding(cfg.max_position_embeddings,
                                 cfg.hidden_size, **fk)
         self.drop = Dropout(cfg.dropout)
-        layer = TransformerEncoderLayer(
-            cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
-            dropout=cfg.dropout, activation="gelu", normalize_before=True,
-            **fk)
-        self.encoder = TransformerEncoder(
-            layer, cfg.num_layers,
-            norm=nn.LayerNorm(cfg.hidden_size, eps=1e-5, **fk))
 
     @torch.no_grad()
     def _tie_weights(self):
@@ -92,7 +100,16 @@ class GPTModel(nn.Module):
         self._lm_head = head
 
     def _logits(self, h, rows_invariant=False):
-        if self._lm_head.data_ptr() != self.wte.weight.data_ptr():
+        w = self.wte.weight
+        if self.training and torch.is_grad_enabled() and not rows_invariant:
+            # training: the padded head is a buffer over the embedding's
+            # storage, not the parameter, so the head's gradient would
+            # not reach the embedding through it (nor through a
+            # TrainStep's compute-dtype copy of it).  The row invariance
+            # below holds only on the padded branch: eval mode, or no
+            # gradient taken.
+            return F.linear(h, w)
+        if self._lm_head.data_ptr() != w.data_ptr():
             raise RuntimeError(
                 "the LM head no longer shares the embedding's storage "
                 "(the model was copied with .to()/.cuda()); build it with "
@@ -104,8 +121,9 @@ class GPTModel(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02):
         """GPT-2's initialization drawn from ``generator`` (on the
-        model's device): N(0, std) for embeddings and Linear weights,
-        zero biases, unit LayerNorm scales."""
+        model's device): N(0, std) for embeddings, Linear weights and the
+        stacked expert weights, zero biases, unit LayerNorm scales."""
+        from ...nn.layer.moe import ExpertFFN
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):
                 m.weight.normal_(0.0, std, generator=generator)
@@ -114,13 +132,19 @@ class GPTModel(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, ExpertFFN):
+                m.w1.normal_(0.0, std, generator=generator)
+                m.w2.normal_(0.0, std, generator=generator)
+                m.b1.zero_()
+                m.b2.zero_()
         return self
 
     def forward(self, input_ids, labels=None):
         b, s = input_ids.shape
         dev = input_ids.device
         pos = torch.arange(s, device=dev)[None, :]
-        h = self.drop(self.wte(input_ids) + self.wpe(pos))
+        h = self.drop(embedding(input_ids, self.wte.weight)
+                      + embedding(pos, self.wpe.weight))
         causal = torch.full((s, s), -1e4, dtype=torch.float32,
                             device=dev).triu(1)
         h = self.encoder(h, causal[None, None])
@@ -207,3 +231,85 @@ class GPTModel(nn.Module):
         return _generate(self, input_ids, draft_model=draft_model,
                          lengths=lengths, max_new_tokens=max_new_tokens,
                          beam_size=beam_size, eos_token_id=eos_token_id)
+
+
+@dataclasses.dataclass
+class GPTMoEConfig(GPTConfig):
+    """GPT config with every ``moe_every``-th block's FFN replaced by a
+    Mixture-of-Experts layer (``nn/layer/moe.py``).  ``moe_top_k`` and
+    ``moe_capacity_factor`` default to the FLAGS_moe_* values and are
+    resolved into the config when the model is built, so a built model's
+    config always names its gating."""
+
+    moe_num_experts: int = 8
+    moe_top_k: Optional[int] = None              # None: FLAGS_moe_top_k
+    moe_capacity_factor: Optional[float] = None  # None: the flag's value
+    moe_every: int = 2                           # every other block
+    moe_aux_weight: float = 1e-2
+
+    @classmethod
+    def tiny(cls, vocab_size=128, hidden_size=32, layers=2, heads=2,
+             seq=64, experts=8, top_k=None, capacity_factor=None,
+             moe_every=2):
+        return cls(vocab_size=vocab_size, hidden_size=hidden_size,
+                   num_layers=layers, num_heads=heads,
+                   intermediate_size=hidden_size * 4,
+                   max_position_embeddings=seq, moe_num_experts=experts,
+                   moe_top_k=top_k, moe_capacity_factor=capacity_factor,
+                   moe_every=moe_every)
+
+
+class GPTMoEModel(GPTModel):
+    """Decoder-only LM with dense and Mixture-of-Experts blocks: block
+    ``i`` is MoE when ``(i + 1) % moe_every == 0``.  The training loss is
+    the cross entropy plus ``moe_aux_weight`` times the gates'
+    load-balance loss.  Incremental decoding (``forward_cached``,
+    ``generate()``) is GPTModel's, unchanged.  ``dispatch="dense"``
+    builds the bit-match control: the same parameters and gating, the
+    GShard dense dispatch in place of the routed slots."""
+
+    def __init__(self, cfg: GPTMoEConfig = None, *, mesh=None,
+                 dispatch: str = "routed", annotate: bool = True,
+                 device: DeviceLike = None, dtype: torch.dtype = None,
+                 **kwargs):
+        from ...nn.layer.moe import (MoEEncoderLayer, moe_capacity_factor,
+                                     moe_top_k)
+        nn.Module.__init__(self)
+        cfg = cfg or GPTMoEConfig(**kwargs)
+        if cfg.moe_top_k is None:
+            cfg.moe_top_k = moe_top_k()
+        if cfg.moe_capacity_factor is None:
+            cfg.moe_capacity_factor = moe_capacity_factor()
+        if cfg.moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1, got {cfg.moe_every}")
+        fk = dict(device=resolve_device(device), dtype=dtype)
+        self._init_embeddings(cfg, fk)
+        blocks = []
+        for i in range(cfg.num_layers):
+            if (i + 1) % cfg.moe_every == 0:
+                blocks.append(MoEEncoderLayer(
+                    cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+                    cfg.moe_num_experts, dropout=cfg.dropout,
+                    activation="gelu", normalize_before=True,
+                    top_k=cfg.moe_top_k,
+                    capacity_factor=cfg.moe_capacity_factor, mesh=mesh,
+                    dispatch=dispatch, annotate=annotate, **fk))
+            else:
+                blocks.append(TransformerEncoderLayer(
+                    cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
+                    dropout=cfg.dropout, activation="gelu",
+                    normalize_before=True, **fk))
+        self.encoder = TransformerEncoder(
+            blocks, norm=nn.LayerNorm(cfg.hidden_size, eps=1e-5, **fk))
+
+    def forward(self, input_ids, labels=None):
+        out = GPTModel.forward(self, input_ids, labels)
+        if labels is None:
+            return out
+        # the gates train through the aux term riding the loss
+        return out + self.moe_aux_loss() * self.config.moe_aux_weight
+
+    def moe_aux_loss(self):
+        """Summed load-balance loss of the last forward."""
+        from ...nn.layer.moe import total_aux_loss
+        return total_aux_loss(self)

@@ -47,7 +47,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 20 and all(map(os.path.exists, files[:2]))
     for new in ("quantization/ptq.py", "quantization/freeze.py",
-                "ops/int8.py", "static/api_extra.py"):
+                "ops/int8.py", "static/api_extra.py", "ops/routing.py",
+                "nn/layer/moe.py", "parallel/mesh.py",
+                "profiler/metrics.py"):
         assert os.path.join(ROOT, "paddle_tpu_torch", new) in files
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f))
                                              & set(BANNED))
@@ -104,6 +106,11 @@ def test_package_imports_with_jax_unimportable():
             "from paddle_tpu_torch.ops.int8 import conv2d_int8, linear_int8\n"
             "from paddle_tpu_torch.nn.functional.common import (cached_ffn, "
             "cached_linear, cached_linears)\n"
+            "from paddle_tpu_torch.text.models import GPTMoEModel\n"
+            "from paddle_tpu_torch.nn.layer.moe import publish_moe_metrics\n"
+            "from paddle_tpu_torch.ops.routing import expert_dispatch_plan\n"
+            "from paddle_tpu_torch.parallel import make_mesh, MeshGuard\n"
+            "from paddle_tpu_torch.profiler import default_registry\n"
             "print('ok')\n")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -154,6 +161,32 @@ def test_training_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     ids = np.ones((2, 8), np.int64)
     loss = step((ids, None, None, ids[:, :2], None,
                  np.zeros((2, 2), np.int64)))
+    assert loss.device.type == "cpu" and np.isfinite(float(loss))
+
+
+def test_moe_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    from paddle_tpu_torch.nn import MoELayer
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.text.models import GPTMoEConfig, GPTMoEModel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTMoEConfig.tiny(experts=4)
+    for make in (lambda **kw: GPTMoEModel(cfg, **kw),
+                 lambda **kw: MoELayer(16, 32, 4, **kw)):
+        with pytest.raises(PreconditionNotMetError, match="device='cpu'"):
+            make()
+        with pytest.raises(PreconditionNotMetError):
+            make(device="cuda")
+        assert all(p.device.type == "cpu"
+                   for p in make(device="cpu").parameters())
+    with pytest.raises(PreconditionNotMetError, match="devices="):
+        make_mesh({"ep": 1})
+    mesh = make_mesh({"ep": 1}, devices=["cpu"])
+    m = GPTMoEModel(cfg, device="cpu")
+    with pytest.raises(PreconditionNotMetError):
+        TrainStep(m, AdamW(), mesh=mesh)
+    step = TrainStep(m, AdamW(), mesh=mesh, device="cpu")
+    ids = np.ones((2, 8), np.int64)
+    loss = step((ids, ids))
     assert loss.device.type == "cpu" and np.isfinite(float(loss))
 
 

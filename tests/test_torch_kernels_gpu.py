@@ -250,6 +250,10 @@ FA_CASES = {
     "h64_causal_cross": (2, 3, 64, 96, 64, True, None),
     "ragged_17x33_h128": (2, 2, 17, 33, 128, False, (2, 1, 1, 33)),
     "ragged_77_h256_shared_bias": (1, 3, 77, 77, 256, False, (1, 1, 77, 77)),
+    # bench.py's moe workload: GPT training at hidden 512, 8 heads, seq
+    # 128, batch 32 in f32, under GPTModel's additive causal bias (1, 1,
+    # S, S) of 0 and -1e4 ("gpt"), not the kernels' causal path
+    "gpt_causal_bias_bsnh": (32, 8, 128, 128, 64, False, "gpt", "bsnh"),
 }
 
 
@@ -284,8 +288,9 @@ def _fa_case(name, dev, dtype, seed=0):
     q, k, v = t(B, N, Sq, H), t(B, N, Sk, H), t(B, N, Sk, H)
     do = t(B, N, Sq, H)
     bias = None
-    if bshape == "square":
-        bias = torch.from_numpy(np.triu(np.full((1, 1, Sq, Sk), -1e30,
+    if bshape in ("square", "gpt"):
+        fill = -1e30 if bshape == "square" else -1e4
+        bias = torch.from_numpy(np.triu(np.full((1, 1, Sq, Sk), fill,
                                                 np.float32), 1)).to(dev)
     elif bshape == "pad":
         lens = rng.randint(Sk // 2, Sk + 1, B)
@@ -384,7 +389,8 @@ def test_flash_attention_tensor_core_kernels_match_plain_versions(cuda,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", ["s200_h256_causal_pad_bias",
                                   "cross_causal_128x384_pad_bias",
-                                  "h128_pad_bias", "s128_h64"])
+                                  "h128_pad_bias", "s128_h64",
+                                  "gpt_causal_bias_bsnh"])
 def test_flash_attention_tensor_core_kernels_repeat_bit_for_bit(cuda, name,
                                                                 dtype):
     """One writer per output, fixed-order sums, no atomics: two launches
@@ -399,7 +405,8 @@ def test_flash_attention_tensor_core_kernels_repeat_bit_for_bit(cuda, name,
 
 @pytest.mark.parametrize("name", ["served_bsnh", "bert_pad_bias_bsnh",
                                   "seq2seq_causal_bsnh", "h128_full_bias_s200",
-                                  "h256_causal_cross_pad"])
+                                  "h256_causal_cross_pad",
+                                  "gpt_causal_bias_bsnh"])
 def test_flash_attention_f32_backward_takes_the_kernel_forward(cuda, name):
     """The f32 backward kernels (B2, FMA) fed the f32 forward kernel's o
     and lse (split TF32) stay within their limit of the plain backward on
@@ -1759,3 +1766,112 @@ def test_static_server_two_workers_serves_every_row(cuda, tmp_path):
         xs = np.zeros((bucket, 1, 28, 28), np.float32)
         xs[:len(x)] = x
         np.testing.assert_array_equal(got, ref.run([xs])[0][:len(x)])
+
+
+# -- GPT-MoE training (bench.py's moe workload) --------------------------------
+
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 means f32: the routed = dense-control identity needs exact f32
+    products (x * 1 + sums of 0), which TF32's rounding of x breaks."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def _gpt_moe(dev, dispatch="routed", layers=2, top_k=2, seed=0,
+             moe_every=2):
+    from paddle_tpu_torch.text.models import GPTMoEConfig, GPTMoEModel
+    cfg = GPTMoEConfig.tiny(vocab_size=128, hidden_size=128, layers=layers,
+                            heads=2, seq=64, experts=4, top_k=top_k,
+                            capacity_factor=1.25, moe_every=moe_every)
+    cfg.dropout = 0.0
+    m = GPTMoEModel(cfg, dispatch=dispatch, device=dev)
+    return m.init_weights(torch.Generator(device=dev).manual_seed(seed))
+
+
+def test_embedding_gradient_repeats_bit_for_bit_on_the_card(cuda):
+    """The port's lookup adds each id's gradient rows in one order: two
+    backwards give the same bits (torch's own CUDA embedding backward
+    does not), and equal torch's within rounding."""
+    from paddle_tpu_torch.nn.functional.common import embedding
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, 128, (32, 128))).to(cuda)
+    w = torch.from_numpy(rng.randn(128, 512).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(32, 128, 512).astype(np.float32)) \
+        .to(cuda)
+    grads = []
+    for _ in range(2):
+        leaf = w.clone().requires_grad_()
+        grads.append(torch.autograd.grad(embedding(ids, leaf), leaf, g)[0])
+    assert torch.equal(grads[0], grads[1])
+    leaf = w.clone().requires_grad_()
+    want = torch.autograd.grad(torch.nn.functional.embedding(ids, leaf),
+                               leaf, g)[0]
+    torch.testing.assert_close(grads[0], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_gpt_moe_routed_equals_dense_control_on_the_card(cuda, top_k):
+    """2 TrainStep steps (AdamW) of a GPT-MoE and its dense-dispatch
+    control from one seed, f32 with TF32 off, through B1/B2: losses and
+    every parameter bit-equal; the kernels ran."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep, make_mesh
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 128, (4, 64))).to(cuda)
+    runs = []
+    with _no_tf32():
+        for dispatch in ("routed", "dense"):
+            m = _gpt_moe(cuda, dispatch, top_k=top_k)
+            step = TrainStep(m, AdamW(learning_rate=1e-3),
+                             mesh=make_mesh({"ep": 1}))
+            n0 = fa.flash_attention.launches_dkv
+            losses = [step((ids, ids)).item() for _ in range(2)]
+            runs.append((losses, dict(m.named_parameters()),
+                         fa.flash_attention.launches_dkv - n0))
+    (lr, pr, nr), (ld, pd, nd) = runs
+    assert lr == ld and np.isfinite(lr).all()
+    assert nr == nd == 2 * 2
+    for n in pr:
+        assert torch.equal(pr[n], pd[n]), n
+
+
+def test_gpt_moe_forward_on_the_card_matches_the_cpu(cuda):
+    """A one-layer GPTMoEModel (its block MoE) on the card, TF32 off,
+    against the same weights on the CPU: the same experts for every
+    token, logits within 1e-4 of max |logit| (f32 GEMMs in other orders
+    and B1's split-TF32 forward, ~1e-6 a product)."""
+    from paddle_tpu_torch.nn.layer.moe import moe_layers
+    from paddle_tpu_torch.text.models import GPTMoEModel
+    with _no_tf32():
+        card = _gpt_moe(cuda, layers=1, moe_every=1)
+        cpu = GPTMoEModel(card.config, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        ids = np.random.RandomState(1).randint(0, 128, (4, 64))
+        probs, logits = {}, {}
+
+        def keep_probs(name):
+            def hook(mod, args, out):
+                probs[name] = mod.gate(args[0]).float().softmax(-1).cpu()
+            return hook
+        for name, m in (("card", card), ("cpu", cpu)):
+            h = moe_layers(m)[0].register_forward_hook(keep_probs(name))
+            with torch.no_grad():
+                logits[name] = m(torch.from_numpy(ids).to(
+                    m.wte.weight.device)).cpu()
+            h.remove()
+    top = [probs[n].sort(dim=-1, descending=True, stable=True)[1][..., :2]
+           for n in ("card", "cpu")]
+    assert torch.equal(top[0], top[1])
+    err = (logits["card"] - logits["cpu"]).abs().max() \
+        / logits["cpu"].abs().max()
+    assert err.item() <= 1e-4

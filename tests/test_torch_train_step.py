@@ -222,10 +222,17 @@ def test_bf16_compute_keeps_f32_masters():
     assert not torch.equal(m.cls.transform.weight, w0)
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object()), dict(zero=1),
-                                    dict(remat=True), dict(localsgd_k=4),
+@pytest.mark.parametrize("option", [dict(mesh=object()), "two_device_mesh",
+                                    dict(zero=1), dict(remat=True),
+                                    dict(localsgd_k=4),
                                     dict(dgc_sparsity=0.9)])
 def test_options_of_later_slices_raise(option):
+    """Options of later slices raise.  A mesh is refused unless it is a
+    port ``Mesh`` of one device, the step's: an ``object()`` and a mesh
+    over two devices."""
+    if option == "two_device_mesh":
+        from paddle_tpu_torch.parallel import make_mesh
+        option = dict(mesh=make_mesh({"dp": 2}, devices=["cpu", "cpu"]))
     net = torch.nn.Linear(2, 1)
     with pytest.raises(UnimplementedError, match="later slice"):
         TrainStep(net, Adam(), device="cpu", **option)
